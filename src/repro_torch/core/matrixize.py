@@ -1,0 +1,307 @@
+"""Tensor ⇄ matrix reshaping and the two planners of the compression engine
+(port of ``repro.core.matrixize``).
+
+* :func:`plan_buckets` groups matrices of similar shape into zero-padded
+  ``(B, n, m)`` slabs, so one kernel launch covers a bucket.
+* :func:`plan_flat` lays an ordered list of payload tensors onto contiguous
+  1-D wire buffers, so one collective covers a whole phase.
+
+Both planners are pure Python over shapes and return the same plans as the
+JAX package's, entry for entry.  Tensors a simulated data-parallel step
+carries per worker have leading worker dims (``lead``) in front of the
+shapes the plans describe.  Wire policies ``"auto"`` and ``"float32"`` are
+ported; the others raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+@dataclasses.dataclass(frozen=True)
+class MatrixSpec:
+    """How one parameter tensor maps to compression matrices.
+
+    kind:       ``"none"`` (aggregated uncompressed), ``"matrix"`` (trailing
+                dims reshaped to 2-D) or ``"conv"`` ((O, I, kh, kw) →
+                (O, I·kh·kw)).
+    batch_dims: leading stacking dims (layer stack) that become batch dims
+                of the compressor.
+    """
+
+    kind: str = "matrix"
+    batch_dims: int = 0
+
+    def is_compressed(self) -> bool:
+        return self.kind != "none"
+
+
+NONE = MatrixSpec(kind="none")
+
+
+def matrix_shape(shape: Tuple[int, ...], spec: MatrixSpec
+                 ) -> Optional[Tuple[Tuple[int, ...], int, int]]:
+    """``(batch_shape, n, m)``, or None for uncompressed leaves."""
+    if not spec.is_compressed():
+        return None
+    b = spec.batch_dims
+    batch_shape, rest = tuple(shape[:b]), tuple(shape[b:])
+    if spec.kind == "conv":
+        if len(rest) != 4:
+            raise ValueError(f"conv spec needs 4 trailing dims, got {rest}")
+        n, m = rest[0], rest[1] * rest[2] * rest[3]
+    else:
+        if len(rest) < 2:
+            raise ValueError(f"matrix spec needs ≥2 trailing dims, got {rest}")
+        n, m = rest[0], math.prod(rest[1:])
+    return batch_shape, n, m
+
+
+def to_matrix(x: torch.Tensor, spec: MatrixSpec) -> torch.Tensor:
+    batch_shape, n, m = matrix_shape(tuple(x.shape), spec)
+    return x.reshape(batch_shape + (n, m))
+
+
+def from_matrix(mat: torch.Tensor, shape: Tuple[int, ...],
+                spec: MatrixSpec) -> torch.Tensor:
+    return mat.reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# Shape bucketing
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketEntry:
+    """One leaf's slot range inside a bucket's stacking dimension."""
+
+    index: int    # position of the leaf in the planner's input sequence
+    count: int    # matrices this leaf contributes (= prod(batch_shape))
+    n: int        # un-padded rows
+    m: int        # un-padded cols
+    offset: int   # first slot in the bucket's stack dim
+
+
+@dataclasses.dataclass(frozen=True)
+class Bucket:
+    """A (n, m)-padded stack of matrices compressed as one batched op."""
+
+    n: int
+    m: int
+    entries: Tuple[BucketEntry, ...]
+
+    @property
+    def count(self) -> int:
+        return sum(e.count for e in self.entries)
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketPlan:
+    buckets: Tuple[Bucket, ...]
+
+    @functools.cached_property
+    def _by_index(self):
+        return {e.index: (b_id, e)
+                for b_id, b in enumerate(self.buckets) for e in b.entries}
+
+    def entry_for(self, index: int) -> Tuple[int, BucketEntry]:
+        """(bucket position, entry) for the leaf at ``index``."""
+        return self._by_index[index]
+
+
+def plan_buckets(matrix_shapes, tolerance: float = 0.25) -> BucketPlan:
+    """Greedy shape bucketing with a padding-waste tolerance.
+
+    ``matrix_shapes`` holds one ``(count, n, m)`` per leaf, or ``None`` for
+    leaves that do not take part.  Shapes are placed largest-area first; a
+    shape joins the first bucket whose (n, m) covers it with at most
+    ``tolerance`` relative padding waste.  Bucket order follows descending
+    seed area; entries within a bucket follow leaf order.
+    """
+    items = [(i, s[0], s[1], s[2])
+             for i, s in enumerate(matrix_shapes) if s is not None]
+    order = sorted(items, key=lambda t: (-(t[2] * t[3]), t[0]))
+    raw = []  # [n, m, [items]]
+    for it in order:
+        _, _, n, m = it
+        for b in raw:
+            if n <= b[0] and m <= b[1] and b[0] * b[1] <= (1.0 + tolerance) * n * m:
+                b[2].append(it)
+                break
+        else:
+            raw.append([n, m, [it]])
+    buckets = []
+    for bn, bm, its in raw:
+        its.sort(key=lambda t: t[0])
+        entries, off = [], 0
+        for i, c, n, m in its:
+            entries.append(BucketEntry(index=i, count=c, n=n, m=m, offset=off))
+            off += c
+        buckets.append(Bucket(n=bn, m=bm, entries=tuple(entries)))
+    return BucketPlan(buckets=tuple(buckets))
+
+
+def pack_matrices(bucket: Bucket, arrays, lead: int = 0) -> torch.Tensor:
+    """Stack per-leaf ``lead + (count, n, m)`` tensors into the bucket's
+    ``lead + (B, bucket.n, bucket.m)`` slab, zero-padding rows and columns.
+    A bucket of one unpadded leaf is returned as that tensor itself (no
+    copy).  ``arrays`` is indexable by ``entry.index``."""
+    parts = []
+    for e in bucket.entries:
+        x = arrays[e.index]
+        if (e.n, e.m) != (bucket.n, bucket.m):
+            x = F.pad(x, (0, bucket.m - e.m, 0, bucket.n - e.n))
+        parts.append(x)
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=lead)
+
+
+def pack_factors(bucket: Bucket, arrays) -> torch.Tensor:
+    """Stack per-leaf ``(count, m, r)`` factors into ``(B, bucket.m, r)``,
+    zero-padding the m rows."""
+    parts = []
+    for e in bucket.entries:
+        x = arrays[e.index]
+        if e.m != bucket.m:
+            x = F.pad(x, (0, 0, 0, bucket.m - e.m))
+        parts.append(x)
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+
+
+def unpack_entry(stacked: torch.Tensor, entry: BucketEntry, rows: int,
+                 cols: Optional[int] = None, lead: int = 0) -> torch.Tensor:
+    """One leaf's ``lead + (count, rows, cols)`` block of a bucket slab, the
+    padding cropped (a view).  ``cols=None`` keeps the trailing dim whole."""
+    x = stacked.narrow(lead, entry.offset, entry.count).narrow(lead + 1, 0, rows)
+    return x if cols is None else x.narrow(lead + 2, 0, cols)
+
+
+# ---------------------------------------------------------------------------
+# Flat-payload planning (the fused wire buffers)
+# ---------------------------------------------------------------------------
+
+WIRE_DTYPES = ("auto", "float32", "bfloat16", "int8", "int4")
+PORTED_WIRE_DTYPES = ("auto", "float32")
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatSlot:
+    """One payload tensor's position inside a flat wire chunk."""
+
+    index: int                 # position in the planner's input sequence
+    offset: int                # first element inside the chunk buffer
+    size: int                  # number of elements
+    shape: Tuple[int, ...]     # original shape (restored on unpack)
+    dtype: torch.dtype         # original dtype (restored on unpack)
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatChunk:
+    """One contiguous wire buffer of one dtype, issued as one collective."""
+
+    wire_dtype: torch.dtype
+    slots: Tuple[FlatSlot, ...]
+
+    @property
+    def size(self) -> int:
+        return sum(s.size for s in self.slots)
+
+    @property
+    def wire_itemsize(self) -> int:
+        return self.wire_dtype.itemsize
+
+    @property
+    def wire_bytes(self) -> int:
+        return self.size * self.wire_itemsize
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatPlan:
+    chunks: Tuple[FlatChunk, ...]
+
+    @property
+    def total_wire_bytes(self) -> int:
+        return sum(c.wire_bytes for c in self.chunks)
+
+
+def check_wire_dtype(wire_dtype: str) -> None:
+    if wire_dtype not in WIRE_DTYPES:
+        raise ValueError(
+            f"unknown wire_dtype {wire_dtype!r}; use one of {WIRE_DTYPES}")
+    if wire_dtype not in PORTED_WIRE_DTYPES:
+        raise NotImplementedError(
+            f"wire_dtype={wire_dtype!r} is not ported yet (ROADMAP queue A, "
+            f"item 18: quantized and cast wire formats)")
+
+
+def plan_flat(parts, wire_dtype: str = "auto",
+              max_chunk_bytes: Optional[int] = None, lead: int = 0) -> FlatPlan:
+    """Plan the fused wire layout for an ordered sequence of tensors.
+
+    ``parts`` need only ``.shape`` and ``.dtype``; their first ``lead`` dims
+    are worker dims and are not part of the plan.  ``"auto"`` keeps each
+    part's dtype (same-dtype parts share a chunk, in input order);
+    ``"float32"`` casts every part into one chunk.  ``max_chunk_bytes``
+    starts a fresh chunk once the open one would exceed it (a part never
+    spans two chunks).  Chunk order follows first appearance of each wire
+    dtype; slots follow input order.
+    """
+    check_wire_dtype(wire_dtype)
+    cast = None if wire_dtype == "auto" else getattr(torch, wire_dtype)
+    chunks: list = []   # [wire_dtype, offset, [FlatSlot]]
+    by_key: dict = {}   # wire dtype -> open chunk (last of its dtype)
+    for i, p in enumerate(parts):
+        shape = tuple(p.shape[lead:])
+        wd = cast if cast is not None else p.dtype
+        size = math.prod(shape)
+        open_chunk = by_key.get(wd)
+        if open_chunk is not None and max_chunk_bytes is not None:
+            if (open_chunk[1] + size) * wd.itemsize > max_chunk_bytes:
+                open_chunk = None
+        if open_chunk is None:
+            open_chunk = [wd, 0, []]
+            chunks.append(open_chunk)
+            by_key[wd] = open_chunk
+        open_chunk[2].append(FlatSlot(index=i, offset=open_chunk[1], size=size,
+                                      shape=shape, dtype=p.dtype))
+        open_chunk[1] += size
+    return FlatPlan(chunks=tuple(FlatChunk(wire_dtype=wd, slots=tuple(slots))
+                                 for wd, _, slots in chunks))
+
+
+def pack_flat(chunk: FlatChunk, parts, lead: int = 0) -> torch.Tensor:
+    """Concatenate the chunk's slots into its ``lead + (size,)`` wire
+    buffer, cast to the wire dtype."""
+    flats = [parts[s.index].reshape(parts[s.index].shape[:lead] + (-1,))
+             .to(chunk.wire_dtype) for s in chunk.slots]
+    return flats[0] if len(flats) == 1 else torch.cat(flats, dim=-1)
+
+
+def unpack_flat(chunk: FlatChunk, buf: torch.Tensor, leading=()) -> dict:
+    """Split a ``leading + (size,)`` wire buffer back into
+    ``{slot.index: tensor}`` with original shapes and dtypes."""
+    out = {}
+    for s in chunk.slots:
+        x = buf.narrow(-1, s.offset, s.size)
+        out[s.index] = x.reshape(tuple(leading) + s.shape).to(s.dtype)
+    return out
+
+
+def compressed_floats(shape: Tuple[int, ...], spec: MatrixSpec, rank: int) -> int:
+    """Floats sent per step for this leaf at rank r: r·(n+m) per matrix (P
+    and Q together), or the whole tensor when uncompressed."""
+    ms = matrix_shape(shape, spec)
+    if ms is None:
+        return math.prod(shape)
+    batch_shape, n, m = ms
+    return math.prod(batch_shape) * rank * (n + m)
+
+
+def uncompressed_floats(shape: Tuple[int, ...]) -> int:
+    return math.prod(shape)
