@@ -10,9 +10,9 @@ collective is the exact mean over that dim.  The mean is worker-identical,
 so it comes back once, without the worker dim; :meth:`MeshCtx.per_worker`
 stacks it again where per-worker math needs it.
 
-Not ported yet: model/seq-axis collectives, weighted means, gathers,
-``sync_mode="broadcast"`` (ROADMAP queue A, items 4 and 20) and a
-``torch.distributed`` backend.
+Not ported yet: model/seq-axis collectives, weighted means,
+``broadcast_flat`` and ``sync_mode="broadcast"`` (ROADMAP queue A, items 4,
+5 and 20) and a ``torch.distributed`` backend.
 """
 
 from __future__ import annotations
@@ -30,27 +30,62 @@ from repro_torch.core import matrixize
 class CollectiveStats:
     """Counter of data-axis collectives.
 
-    Attach one to a :class:`MeshCtx` and every ``pmean_data`` / ``pmean_flat``
-    call records the logical collective it issues — the count a real
-    data-parallel group would see, recorded even where the collective
-    degenerates to the identity.  The port runs eagerly, so every call
-    records (the JAX package records once per trace).
+    Attach one to a :class:`MeshCtx` and every ``pmean_data`` /
+    ``pmean_flat`` / ``allgather_flat`` call records the logical collective
+    it sends — the count a real data-parallel group would see, recorded
+    even where the collective degenerates to the identity.  The port runs
+    eagerly, so every call records (the JAX package records once per
+    trace).
+
+    Each record holds the elements per worker (``sizes``), the wire bytes
+    per element (``itemsizes``: fractional 0.5 for nibble-packed int4),
+    the ``kind`` (``"reduce"``: flat in W; ``"gather"``: every worker
+    receives ``fanout`` = W payloads) and the scale-sidecar bytes of a
+    quantized chunk (``overheads``).
     """
 
     data_collectives: int = 0
     sizes: List[int] = dataclasses.field(default_factory=list)
-    itemsizes: List[int] = dataclasses.field(default_factory=list)
+    itemsizes: List[float] = dataclasses.field(default_factory=list)
     kinds: List[str] = dataclasses.field(default_factory=list)
+    fanouts: List[int] = dataclasses.field(default_factory=list)
+    overheads: List[int] = dataclasses.field(default_factory=list)
 
-    def record(self, n_elems: int, itemsize: int = 4, kind: str = "reduce") -> None:
+    def record(self, n_elems: int, itemsize: float = 4, kind: str = "reduce",
+               fanout: int = 1, overhead: int = 0) -> None:
+        if kind not in ("reduce", "gather"):
+            raise ValueError(f"unknown collective kind {kind!r}")
         self.data_collectives += 1
         self.sizes.append(int(n_elems))
-        self.itemsizes.append(int(itemsize))
+        i = float(itemsize)
+        self.itemsizes.append(int(i) if i.is_integer() else i)
         self.kinds.append(kind)
+        self.fanouts.append(int(fanout))
+        self.overheads.append(int(overhead))
+
+    def reset(self) -> None:
+        self.data_collectives = 0
+        for records in (self.sizes, self.itemsizes, self.kinds, self.fanouts,
+                        self.overheads):
+            records.clear()
 
     @property
     def reduce_collectives(self) -> int:
         return sum(1 for k in self.kinds if k == "reduce")
+
+    @property
+    def gather_collectives(self) -> int:
+        return sum(1 for k in self.kinds if k == "gather")
+
+    def bytes_per_collective(self) -> List[float]:
+        """Wire bytes each worker receives per collective: ``size·itemsize
+        + overhead``, times the fanout for a gather."""
+        out = []
+        for s, i, k, f, o in zip(self.sizes, self.itemsizes, self.kinds,
+                                 self.fanouts, self.overheads):
+            b = (s * i + o) * (f if k == "gather" else 1)
+            out.append(int(b) if float(b).is_integer() else b)
+        return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,9 +137,21 @@ class MeshCtx:
             return x
         return x.expand(self.lead + tuple(x.shape)).contiguous()
 
-    def _record(self, n_elems: int, itemsize: int) -> None:
+    def data_size(self) -> int:
+        """Number of data-parallel workers (1 outside any data axis)."""
+        return self.backend.workers if self.data_axes else 1
+
+    def _record(self, n_elems: int, itemsize: float, kind: str = "reduce",
+                overhead: int = 0) -> None:
         if self.stats is not None:
-            self.stats.record(n_elems, itemsize, kind="reduce")
+            self.stats.record(n_elems, itemsize, kind=kind,
+                              fanout=self.data_size() if kind == "gather" else 1,
+                              overhead=overhead)
+
+    def _record_chunk(self, chunk: matrixize.FlatChunk, kind: str) -> None:
+        """Record a wire chunk at its honest cost: fractional itemsize (0.5
+        for int4) plus the scale-sidecar bytes of a quantized chunk."""
+        self._record(chunk.size, chunk.wire_itemsize, kind, chunk.overhead_bytes)
 
     def pmean_data(self, x: torch.Tensor) -> torch.Tensor:
         """Mean over the data axes of one per-worker tensor."""
@@ -117,7 +164,12 @@ class MeshCtx:
         """Fused all-reduce-mean: one collective per wire chunk for a whole
         list of per-worker tensors (see :func:`matrixize.plan_flat` for the
         chunking policy).  Elementwise, so numerically the same as one
-        ``pmean_data`` per part when no wire cast applies."""
+        ``pmean_data`` per part when no wire cast applies.
+
+        Under ``wire_dtype="int8"``/``"int4"`` each float slot is quantized
+        and dequantized on its worker and the mean is taken over the float32
+        result (a widened accumulator); the record carries the quantized
+        wire cost."""
         parts = list(parts)
         if not parts:
             return []
@@ -126,12 +178,58 @@ class MeshCtx:
                                    max_chunk_bytes=max_chunk_bytes, lead=nl)
         out: dict = {}
         for chunk in plan.chunks:
-            buf = matrixize.pack_flat(chunk, parts, lead=nl)
-            self._record(chunk.size, chunk.wire_itemsize)
+            if chunk.quant is not None:
+                buf = matrixize.quant_dequant_flat(chunk, parts, lead=nl)
+            else:
+                buf = matrixize.pack_flat(chunk, parts, lead=nl)
+            self._record_chunk(chunk, "reduce")
             if self.data_axes:
                 buf = self.backend.pmean(buf)
             out.update(matrixize.unpack_flat(chunk, buf))
         return [out[i] for i in range(len(parts))]
+
+    def allgather_flat(self, parts: Sequence[torch.Tensor], *,
+                       wire_dtype: str = "auto",
+                       max_chunk_bytes: Optional[int] = None
+                       ) -> List[torch.Tensor]:
+        """Fused all-gather: one collective per wire chunk; every part comes
+        back with a leading worker dim of ``data_size()``, held once.
+
+        For payloads that cannot be summed on the wire (top-k selections):
+        every worker receives every worker's payload.  Under the simulated
+        backend the worker dim is already written out, so the gathered
+        buffer is the ``(W, size)`` wire buffer itself.  A quantized chunk
+        ships its integer codes (nibble-packed for int4) with the scale
+        sidecar and is dequantized after the gather.  Recorded as
+        ``kind="gather"`` with ``fanout=data_size()``."""
+        parts = list(parts)
+        if not parts:
+            return []
+        nl = len(self.lead)
+        plan = matrixize.plan_flat(parts, wire_dtype=wire_dtype,
+                                   max_chunk_bytes=max_chunk_bytes, lead=nl)
+        w = (self.data_size(),)
+        out: dict = {}
+        for chunk in plan.chunks:
+            self._record_chunk(chunk, "gather")
+            if chunk.quant is not None:
+                payload, scales = matrixize.quant_pack_flat(chunk, parts, lead=nl)
+                if not self.data_axes:
+                    payload, scales = payload[None], scales[None]
+                out.update(matrixize.quant_unpack_flat(chunk, payload, scales,
+                                                       leading=w))
+                continue
+            buf = matrixize.pack_flat(chunk, parts, lead=nl)
+            if not self.data_axes:
+                buf = buf[None]
+            out.update(matrixize.unpack_flat(chunk, buf, leading=w))
+        return [out[i] for i in range(len(parts))]
+
+    def gather_data_weight(self) -> Optional[torch.Tensor]:
+        """The workers' contribution weights for a gather-pattern combine,
+        or ``None`` for uniform workers: the simulated backend carries no
+        weights yet (scenario weights wait for ROADMAP queue A, item 5)."""
+        return None
 
 
 SINGLE = MeshCtx()  # single worker: all collectives are identities

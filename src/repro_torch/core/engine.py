@@ -1,13 +1,28 @@
-"""The compressed-collective transport engine, as far as PowerSGD's bucketed
-step needs it (port of ``repro.core.engine``).
+"""The compressed-collective transport engine (port of
+``repro.core.engine``).
 
-* :class:`Transport` — the fused all-reduce bound to a context and a wire
-  policy.
+* :class:`Transport` — the fused all-reduce and all-gather bound to a
+  context and a wire policy, and the receiver-side mean over gathered
+  decodes.
 * :class:`MatrixPayloads` — a tree's compressed leaves as zero-padded
   ``(B, n, m)`` bucket slabs, and the scatter of results back to the tree.
+* :func:`run_step` — the generic step of single-round schemes (Top-K).
+  A compressor declares per leaf what travels (``encode_leaf`` →
+  :class:`Encoded`) and how to rebuild a leaf from a payload
+  (``decode_leaf``); ``wire_mode`` says how it travels: ``"reduce"``
+  all-reduces the fused payloads and decodes once, ``"gather"`` all-gathers
+  them, decodes every worker's payload and averages the W decodes.
+  Uncompressed leaves ride one fused all-reduce.
 
-The generic single-round step (``run_step``) and the gather path wait for
-the rest of the compressor zoo (ROADMAP queue A, items 6 and 15).
+Under a simulated data-parallel context the per-worker tensors carry the
+worker dims ``ctx.lead``: ``encode_leaf(path, g, q, spec, lead)`` gets a
+``lead + shape`` delta and returns payloads with the same leading dims,
+and ``decode_leaf(enc, payload, lead)`` rebuilds ``lead + shape`` from
+payloads that carry ``lead`` (the worker's own payload, or the gathered
+``(W,)`` stack).
+
+Not ported yet: ``StatePartition`` and ``PipelinedTransport`` (ROADMAP
+queue A, items 6 and 19), weighted combines (item 5).
 """
 
 from __future__ import annotations
@@ -34,6 +49,17 @@ class CompressOut:
 
 
 @dataclasses.dataclass(frozen=True)
+class Encoded:
+    """One leaf's wire declaration: ``payload`` travels, ``aux`` stays local
+    (shape breadcrumbs for decode), ``bits`` is the analytic payload size
+    per worker."""
+
+    payload: Tuple[torch.Tensor, ...]
+    aux: Any = None
+    bits: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
 class Transport:
     """Fused data-axis transport bound to a context and a wire policy."""
 
@@ -45,6 +71,22 @@ class Transport:
         """Fused all-reduce-mean (one collective per wire chunk)."""
         return self.ctx.pmean_flat(parts, wire_dtype=self.wire_dtype,
                                    max_chunk_bytes=self.max_chunk_bytes)
+
+    def gather(self, parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Fused all-gather (one collective per wire chunk); every part comes
+        back with a leading worker dim of ``ctx.data_size()``."""
+        return self.ctx.allgather_flat(parts, wire_dtype=self.wire_dtype,
+                                       max_chunk_bytes=self.max_chunk_bytes)
+
+    @staticmethod
+    def combine_mean(stacked: torch.Tensor,
+                     weights: Optional[torch.Tensor]) -> torch.Tensor:
+        """Average W per-worker decodes over the leading gathered dim."""
+        if weights is not None:
+            raise NotImplementedError(
+                "weighted gather combines are not ported yet (ROADMAP queue "
+                "A, item 5)")
+        return stacked.mean(dim=0)
 
 
 def collect_leaves(deltas, state, specs) -> list:
@@ -172,3 +214,65 @@ class MatrixPayloads:
             results.append((crop(agg_bufs[b_id], ()),
                             crop(recon_bufs[b_id], recon_lead), new_q))
         return scatter_tree(self.deltas, results)
+
+
+def run_step(comp, deltas, state, specs, ctx: MeshCtx = SINGLE, *,
+             wire_dtype: str = "auto",
+             max_chunk_bytes: Optional[int] = None) -> CompressOut:
+    """One compress+aggregate step of a stateless single-round scheme
+    through the fused transport (stateful PowerSGD runs its own phases).
+
+    Encodes every leaf, fuses all payloads into one collective per wire
+    chunk (reduce or gather by ``comp.wire_mode``), decodes and scatters
+    back to the tree.  Leaves the scheme leaves uncompressed
+    (``encode_leaf`` → ``None``) ride a fused all-reduce: for a gather
+    scheme that is one reduce beside the payload gathers.  ``agg`` is held
+    once; ``recon`` (the worker's own decode) carries ``ctx.lead``.
+    """
+    transport = Transport(ctx=ctx, wire_dtype=wire_dtype,
+                          max_chunk_bytes=max_chunk_bytes)
+    lead = ctx.lead
+    leaves = collect_leaves(deltas, state, specs)
+
+    encs, bits = [], 0
+    for path, g, q, spec in leaves:
+        enc = comp.encode_leaf(path, g, q, spec, lead)
+        encs.append(enc)
+        bits += (matrixize.uncompressed_floats(tuple(g.shape[len(lead):])) * 32
+                 if enc is None else enc.bits)
+    unc_ids = [i for i, e in enumerate(encs) if e is None]
+    enc_ids = [i for i, e in enumerate(encs) if e is not None]
+    payload_parts, slices = [], {}
+    for i in enc_ids:
+        slices[i] = (len(payload_parts), len(payload_parts) + len(encs[i].payload))
+        payload_parts.extend(encs[i].payload)
+
+    def local_recon(i):
+        return comp.decode_leaf(encs[i], encs[i].payload, lead)
+
+    results: dict = {}
+    if comp.wire_mode == "reduce":
+        reduced = transport.reduce_mean(
+            payload_parts + [leaves[i][1] for i in unc_ids])
+        for i in enc_ids:
+            lo, hi = slices[i]
+            agg = comp.decode_leaf(encs[i], tuple(reduced[lo:hi]), ())
+            results[i] = (agg, local_recon(i), None)
+        for j, i in enumerate(unc_ids):
+            results[i] = (reduced[len(payload_parts) + j], leaves[i][1], None)
+    else:
+        unc_agg = transport.reduce_mean([leaves[i][1] for i in unc_ids])
+        for j, i in enumerate(unc_ids):
+            results[i] = (unc_agg[j], leaves[i][1], None)
+        gathered = transport.gather(payload_parts)   # each: (W,) + shape
+        weights = ctx.gather_data_weight()
+        w = (ctx.data_size(),)
+        for i in enc_ids:
+            lo, hi = slices[i]
+            decoded = comp.decode_leaf(encs[i], tuple(gathered[lo:hi]), w)
+            agg = transport.combine_mean(decoded, weights)
+            del decoded   # free the W decodes before the local one is built
+            results[i] = (agg, local_recon(i), None)
+
+    agg, recon, _ = scatter_tree(deltas, [results[i] for i in range(len(leaves))])
+    return CompressOut(agg=agg, recon=recon, state=None, bits_per_worker=bits)

@@ -40,7 +40,7 @@ class EFState:
 
     error: Any       # per-worker error buffers e_w (tree like params, lead dims)
     momentum: Any    # post-compression momentum m (tree like params)
-    comp: Any        # compressor state (PowerSGD Q factors)
+    comp: Any        # compressor state (PowerSGD Q factors; None if stateless)
     step: int = 0
 
 

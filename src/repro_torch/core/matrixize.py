@@ -9,8 +9,9 @@
 Both planners are pure Python over shapes and return the same plans as the
 JAX package's, entry for entry.  Tensors a simulated data-parallel step
 carries per worker have leading worker dims (``lead``) in front of the
-shapes the plans describe.  Wire policies ``"auto"`` and ``"float32"`` are
-ported; the others raise ``NotImplementedError``.
+shapes the plans describe.  Wire policies ``"auto"``, ``"float32"``,
+``"int8"`` and ``"int4"`` are ported; ``"bfloat16"`` raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels import ops, ref
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,7 +190,11 @@ def unpack_entry(stacked: torch.Tensor, entry: BucketEntry, rows: int,
 # ---------------------------------------------------------------------------
 
 WIRE_DTYPES = ("auto", "float32", "bfloat16", "int8", "int4")
-PORTED_WIRE_DTYPES = ("auto", "float32")
+PORTED_WIRE_DTYPES = ("auto", "float32", "int8", "int4")
+QUANT_WIRE_DTYPES = ("int8", "int4")
+QUANT_QMAX = {"int8": 127, "int4": 7}
+_QUANT_ITEMSIZE = {"int8": 1.0, "int4": 0.5}   # wire bytes per element
+SCALE_BYTES = 4                                # one f32 scale per quant slot
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,22 +210,38 @@ class FlatSlot:
 
 @dataclasses.dataclass(frozen=True)
 class FlatChunk:
-    """One contiguous wire buffer of one dtype, issued as one collective."""
+    """One contiguous wire buffer of one dtype, sent as one collective.
+
+    ``quant`` marks a quantized payload chunk (``"int8"``/``"int4"``):
+    ``wire_dtype`` is then the storage dtype of the shipped codes (int8, or
+    uint8 for nibble-packed int4) and every slot carries a float32 scale in
+    a sidecar that rides the same collective."""
 
     wire_dtype: torch.dtype
     slots: Tuple[FlatSlot, ...]
+    quant: Optional[str] = None
 
     @property
     def size(self) -> int:
         return sum(s.size for s in self.slots)
 
     @property
-    def wire_itemsize(self) -> int:
-        return self.wire_dtype.itemsize
+    def wire_itemsize(self) -> float:
+        """Bytes one element costs on the wire: fractional for int4."""
+        if self.quant is not None:
+            return _QUANT_ITEMSIZE[self.quant]
+        return float(self.wire_dtype.itemsize)
 
     @property
-    def wire_bytes(self) -> int:
-        return self.size * self.wire_itemsize
+    def overhead_bytes(self) -> int:
+        """Scale-sidecar bytes (zero for unquantized chunks)."""
+        return SCALE_BYTES * len(self.slots) if self.quant is not None else 0
+
+    @property
+    def wire_bytes(self):
+        """Payload at ``wire_itemsize`` plus the scale sidecar: an int, or a
+        float for an odd-size int4 payload."""
+        return _whole(self.size * self.wire_itemsize + self.overhead_bytes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -226,8 +249,12 @@ class FlatPlan:
     chunks: Tuple[FlatChunk, ...]
 
     @property
-    def total_wire_bytes(self) -> int:
-        return sum(c.wire_bytes for c in self.chunks)
+    def total_wire_bytes(self):
+        return _whole(sum(c.wire_bytes for c in self.chunks))
+
+
+def _whole(b):
+    return int(b) if float(b).is_integer() else b
 
 
 def check_wire_dtype(wire_dtype: str) -> None:
@@ -237,7 +264,7 @@ def check_wire_dtype(wire_dtype: str) -> None:
     if wire_dtype not in PORTED_WIRE_DTYPES:
         raise NotImplementedError(
             f"wire_dtype={wire_dtype!r} is not ported yet (ROADMAP queue A, "
-            f"item 18: quantized and cast wire formats)")
+            f"item 18: cast wire formats)")
 
 
 def plan_flat(parts, wire_dtype: str = "auto",
@@ -247,37 +274,50 @@ def plan_flat(parts, wire_dtype: str = "auto",
     ``parts`` need only ``.shape`` and ``.dtype``; their first ``lead`` dims
     are worker dims and are not part of the plan.  ``"auto"`` keeps each
     part's dtype (same-dtype parts share a chunk, in input order);
-    ``"float32"`` casts every part into one chunk.  ``max_chunk_bytes``
-    starts a fresh chunk once the open one would exceed it (a part never
-    spans two chunks).  Chunk order follows first appearance of each wire
-    dtype; slots follow input order.
+    ``"float32"`` casts every part into one chunk; ``"int8"``/``"int4"``
+    put every float part into one quantized chunk and keep integer parts
+    (top-k indices) in chunks of their own dtype, as ``"auto"`` does.
+    ``max_chunk_bytes`` starts a fresh chunk once the open one would exceed
+    it (a part never spans two chunks).  Chunk order follows first
+    appearance of each chunk kind; slots follow input order.
     """
     check_wire_dtype(wire_dtype)
-    cast = None if wire_dtype == "auto" else getattr(torch, wire_dtype)
-    chunks: list = []   # [wire_dtype, offset, [FlatSlot]]
-    by_key: dict = {}   # wire dtype -> open chunk (last of its dtype)
+    quant = wire_dtype if wire_dtype in QUANT_WIRE_DTYPES else None
+    cast = (None if wire_dtype == "auto" or quant is not None
+            else getattr(torch, wire_dtype))
+    chunks: list = []   # [wire_dtype, offset, [FlatSlot], quant label]
+    by_key: dict = {}   # chunk kind -> open chunk (last of its kind)
     for i, p in enumerate(parts):
         shape = tuple(p.shape[lead:])
-        wd = cast if cast is not None else p.dtype
+        if quant is not None and p.dtype.is_floating_point:
+            wd = torch.int8 if quant == "int8" else torch.uint8
+            key, label, itemsize = quant, quant, _QUANT_ITEMSIZE[quant]
+        else:
+            wd = cast if cast is not None else p.dtype
+            key, label, itemsize = wd, None, wd.itemsize
         size = math.prod(shape)
-        open_chunk = by_key.get(wd)
+        open_chunk = by_key.get(key)
         if open_chunk is not None and max_chunk_bytes is not None:
-            if (open_chunk[1] + size) * wd.itemsize > max_chunk_bytes:
+            if (open_chunk[1] + size) * itemsize > max_chunk_bytes:
                 open_chunk = None
         if open_chunk is None:
-            open_chunk = [wd, 0, []]
+            open_chunk = [wd, 0, [], label]
             chunks.append(open_chunk)
-            by_key[wd] = open_chunk
+            by_key[key] = open_chunk
         open_chunk[2].append(FlatSlot(index=i, offset=open_chunk[1], size=size,
                                       shape=shape, dtype=p.dtype))
         open_chunk[1] += size
-    return FlatPlan(chunks=tuple(FlatChunk(wire_dtype=wd, slots=tuple(slots))
-                                 for wd, _, slots in chunks))
+    return FlatPlan(chunks=tuple(
+        FlatChunk(wire_dtype=wd, slots=tuple(slots), quant=label)
+        for wd, _, slots, label in chunks))
 
 
 def pack_flat(chunk: FlatChunk, parts, lead: int = 0) -> torch.Tensor:
     """Concatenate the chunk's slots into its ``lead + (size,)`` wire
     buffer, cast to the wire dtype."""
+    if chunk.quant is not None:
+        raise ValueError("pack_flat on a quantized chunk: use quant_pack_flat "
+                         "or quant_dequant_flat (the payload needs its scales)")
     flats = [parts[s.index].reshape(parts[s.index].shape[:lead] + (-1,))
              .to(chunk.wire_dtype) for s in chunk.slots]
     return flats[0] if len(flats) == 1 else torch.cat(flats, dim=-1)
@@ -291,6 +331,83 @@ def unpack_flat(chunk: FlatChunk, buf: torch.Tensor, leading=()) -> dict:
         x = buf.narrow(-1, s.offset, s.size)
         out[s.index] = x.reshape(tuple(leading) + s.shape).to(s.dtype)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Quantized payload chunks (wire_dtype="int8"/"int4")
+#
+# Each slot is quantized on its own, per worker: scale = max|x|/qmax, codes
+# = clip(round(x/scale)).  The float32 scales ride the same collective.
+# The reduce path quantizes and dequantizes locally and all-reduces the
+# float32 result (a widened accumulator); the gather path ships the integer
+# codes, nibble-packed for int4, and dequantizes every worker's payload
+# after the gather.  An int4 slot is padded to an even code count, so slot
+# boundaries stay byte-aligned: packing the slots laid end to end in one
+# kernel launch gives the same bytes as packing them one by one.
+# ---------------------------------------------------------------------------
+
+
+def quant_slot_sizes(chunk: FlatChunk):
+    """Per-slot payload lengths in the shipped code buffer: ceil(size/2)
+    bytes for int4, size for int8."""
+    if chunk.quant == "int4":
+        return [(s.size + 1) // 2 for s in chunk.slots]
+    return [s.size for s in chunk.slots]
+
+
+def _quant_codes(chunk: FlatChunk, parts, lead: int):
+    """Per slot: (lead + (size,) int8 codes, lead-shaped float32 scale)."""
+    qmax = QUANT_QMAX[chunk.quant]
+    out = []
+    for s in chunk.slots:
+        p = parts[s.index]
+        x = p.reshape(p.shape[:lead] + (-1,)).float()
+        sc = ref.quant_scale(x, qmax)
+        out.append((ref.quantize(x, sc.unsqueeze(-1), qmax), sc))
+    return out
+
+
+def quant_pack_flat(chunk: FlatChunk, parts, lead: int = 0):
+    """Quantize and pack a quantized chunk → ``(payload, scales)``.
+
+    ``payload`` is the ``lead + (bytes,)`` shipped code buffer (int8 codes,
+    or uint8 nibble-packed for int4 with each slot padded to an even code
+    count); ``scales`` is the ``lead + (n_slots,)`` float32 sidecar.  For
+    int4 the whole chunk packs in one :func:`~repro_torch.kernels.ops.
+    nibble_pack` call."""
+    coded = _quant_codes(chunk, parts, lead)
+    scales = torch.stack([sc for _, sc in coded], dim=-1)
+    if chunk.quant == "int8":
+        return torch.cat([c for c, _ in coded], dim=-1), scales
+    codes = torch.cat([F.pad(c, (0, c.shape[-1] % 2)) for c, _ in coded], dim=-1)
+    return ops.nibble_pack(codes), scales
+
+
+def quant_unpack_flat(chunk: FlatChunk, payload: torch.Tensor,
+                      scales: torch.Tensor, leading=()) -> dict:
+    """Dequantize a ``leading + (bytes,)`` quantized payload (gathered:
+    ``leading=(W,)``) into ``{slot.index: tensor}`` with original shapes and
+    dtypes.  For int4 the whole payload unpacks in one
+    :func:`~repro_torch.kernels.ops.nibble_unpack` call."""
+    sizes = quant_slot_sizes(chunk)
+    if chunk.quant == "int4":
+        payload = ops.nibble_unpack(payload, 2 * sum(sizes))
+        sizes = [2 * b for b in sizes]
+    out, off = {}, 0
+    for k, (s, psz) in enumerate(zip(chunk.slots, sizes)):
+        codes = payload.narrow(-1, off, s.size)
+        off += psz
+        x = codes.float() * scales[..., k, None]
+        out[s.index] = x.reshape(tuple(leading) + s.shape).to(s.dtype)
+    return out
+
+
+def quant_dequant_flat(chunk: FlatChunk, parts, lead: int = 0) -> torch.Tensor:
+    """Local quantize→dequantize of a quantized chunk as one ``lead +
+    (size,)`` float32 buffer: the all-reduce path's widened accumulator,
+    laid out like an unquantized chunk so :func:`unpack_flat` splits it."""
+    return torch.cat([ref.dequantize(c, sc.unsqueeze(-1))
+                      for c, sc in _quant_codes(chunk, parts, lead)], dim=-1)
 
 
 def compressed_floats(shape: Tuple[int, ...], spec: MatrixSpec, rank: int) -> int:

@@ -1,4 +1,4 @@
-"""Simulated data-parallel EF-PowerSGD training step (port of
+"""Simulated data-parallel error-feedback training step (port of
 ``TrainHyper`` and ``make_sim_train_step`` of ``repro.launch.train``).
 
 W workers run in one process on one device (:class:`~repro_torch.core.
@@ -52,18 +52,24 @@ def resolve_device(device=None) -> torch.device:
 def make_sim_train_step(cfg: ModelConfig, sim, hyper: TrainHyper,
                         compressor: Optional[Compressor] = None,
                         stats=None, device=None):
-    """W-worker EF-PowerSGD train step on a :class:`~repro_torch.core.
+    """W-worker error-feedback train step on a :class:`~repro_torch.core.
     simmesh.SimMesh`.  Returns ``(step_fn, init_state)``.
+
+    ``compressor`` defaults to rank-``hyper.rank`` PowerSGD on the
+    ``hyper.wire_dtype`` wire; any compressor of
+    :func:`repro_torch.core.compressors.make_compressor` (e.g. ``"top_k"``
+    with ``wire_dtype="int4"``) drops in.
 
     ``step_fn(params, ef_state, batch, generator=None)`` →
     ``(params, ef_state, metrics)``.  ``batch`` holds per-worker shards
     ``(W, b, S)`` (:meth:`SimMesh.shard`).  Parameters, momentum and the
-    warm-start factors are worker-identical and held once; the error
+    compressor state are worker-identical and held once; the error
     buffers carry the worker dim.  Parameters and momentum are updated in
     place.  ``metrics["lm_loss"]`` is the worker-mean loss.
 
     ``init_state(generator)`` → ``(params, ef_state)``: random parameters
-    and factors drawn from ``generator``, zero error buffers and momentum.
+    (and PowerSGD factors) drawn from ``generator``, zero error buffers and
+    momentum.
     """
     dev = resolve_device(device)
     if compressor is None:

@@ -107,8 +107,19 @@ def test_flat_plan_ignores_worker_dims():
 
 @pytest.mark.parametrize("wire_dtype", ["bfloat16", "int8", "int4"])
 def test_unported_wire_dtypes_raise(wire_dtype):
-    with pytest.raises(NotImplementedError, match="item 18"):
-        mz.plan_flat([torch.zeros(3)], wire_dtype=wire_dtype)
+    """bfloat16 still waits for item 18 and raises; the quantized wires are
+    ported and plan like the reference (``tests/test_torch_topk.py`` holds
+    them slot for slot)."""
+    parts = [torch.zeros(3), torch.zeros(4, dtype=torch.int32)]
+    if wire_dtype not in mz.PORTED_WIRE_DTYPES:
+        with pytest.raises(NotImplementedError, match="item 18"):
+            mz.plan_flat(parts, wire_dtype=wire_dtype)
+        return
+    plan = mz.plan_flat(parts, wire_dtype=wire_dtype)
+    jplan = jmz.plan_flat([jnp.zeros(3), jnp.zeros(4, jnp.int32)],
+                          wire_dtype=wire_dtype)
+    assert [(c.quant, c.size, c.wire_bytes) for c in plan.chunks] == [
+        (c.quant, c.size, c.wire_bytes) for c in jplan.chunks]
 
 
 def test_flat_pack_unpack_roundtrip():

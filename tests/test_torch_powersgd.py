@@ -154,7 +154,7 @@ def test_compressed_floats_total_matches_reference():
 
 @pytest.mark.parametrize("kw,item", [({"bucketing": "off"}, "item 7"),
                                      ({"track_residual": True}, "item 14"),
-                                     ({"wire_dtype": "int4"}, "item 18")])
+                                     ({"wire_dtype": "bfloat16"}, "item 18")])
 def test_unported_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         powersgd.PowerSGDConfig(**kw)
