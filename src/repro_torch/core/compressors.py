@@ -1,5 +1,6 @@
-"""Compressor interface, PowerSGD at a fixed rank and the Top-K sparsifier
-(port of the parts of ``repro.core.compressors`` the training steps use).
+"""Compressor interface, the identity baseline, PowerSGD at a fixed rank and
+the Top-K sparsifier (port of the parts of ``repro.core.compressors`` the
+training steps and the benchmark LM use).
 
     init(params, specs, generator)                 -> state
     step(deltas, state, specs, ctx, generator)     -> CompressOut
@@ -9,9 +10,10 @@ data axes) and ``CompressOut.recon`` the reconstruction error feedback
 subtracts.  ``bits_per_worker`` counts the payload each worker sends per
 step (paper Tables 3/10/11): r·(n+m) floats per matrix for PowerSGD, a
 32-bit value and a 32-bit index per selected coordinate for Top-K, full
-size for uncompressed leaves, at 32 bits per float.
+size for uncompressed leaves (every leaf under identity), at 32 bits per
+float.
 
-Stateless single-round schemes (Top-K) declare per leaf what travels
+Stateless single-round schemes (identity, Top-K) declare per leaf what travels
 (``encode_leaf`` / ``decode_leaf``) and run through
 :func:`repro_torch.core.engine.run_step`; ``wire_mode`` follows the
 ``allreduce`` flag: linear schemes all-reduce their payloads, the others
@@ -40,6 +42,7 @@ class Compressor:
     (``encode_leaf`` / ``decode_leaf``; error feedback subtracts the
     worker's own decode)."""
 
+    name: str = "base"
     allreduce: bool = True
     #: dtype census of one leaf's payload parts: ``"float"`` follows the
     #: gradient dtype, concrete names are integer side channels
@@ -57,10 +60,10 @@ class Compressor:
 
     def payload_wire_chunks(self) -> int:
         """Wire chunks :func:`matrixize.plan_flat` fuses the payload census
-        into: one per integer dtype plus one for the float parts, or one in
-        all when a float wire dtype casts every part."""
-        if self.wire_dtype == "float32":
-            return 1
+        into: one per integer dtype plus one for the float parts, under
+        every wire dtype (integer parts are never cast; see
+        :func:`matrixize.plan_flat` for this divergence from the JAX
+        package)."""
         census = self.payload_dtypes
         return len({d for d in census if d != "float"}) + ("float" in census)
 
@@ -91,9 +94,48 @@ class Compressor:
         raise NotImplementedError
 
 
+class IdentityCompressor(Compressor):
+    """Full-precision baseline: the SGD data path every compressor is
+    compared against.
+
+    bits_per_worker: ``32 · numel`` for every leaf (nothing is
+    compressed).  Every leaf is its own payload, so the fused engine
+    reduces the whole gradient in one flat collective per step: budget
+    (1, 1, 0).  ``transport="per_leaf"`` (one reduce per leaf, the JAX
+    package's reference path) is not ported.
+    """
+
+    name = "identity"
+    allreduce = True
+
+    def __init__(self, transport: str = "fused", **kw):
+        super().__init__(**kw)
+        self.transport = transport
+
+    def step(self, deltas, state, specs, ctx=SINGLE, generator=None):
+        if self.transport != "fused":
+            return self._step_per_leaf(deltas, state, specs, ctx)
+        return super().step(deltas, state, specs, ctx, generator)
+
+    def _step_per_leaf(self, deltas, state, specs, ctx):
+        raise NotImplementedError(
+            f"transport={self.transport!r} (the per-leaf reference path) is "
+            f"not ported yet (ROADMAP queue A, item 4)")
+
+    def encode_leaf(self, path, g, q, spec, lead):
+        shape = tuple(g.shape[len(lead):])
+        return Encoded(payload=(g,),
+                       bits=matrixize.uncompressed_floats(shape) * 32)
+
+    def decode_leaf(self, enc, payload, lead):
+        return payload[0]
+
+
 class PowerSGDCompressor(Compressor):
     """Rank-r PowerSGD (Alg. 1) on the bucketed engine: 2 fused all-reduces
     per power iteration, whatever the number of weight matrices."""
+
+    name = "powersgd"
 
     def __init__(self, rank=2, orthogonalizer="gram_schmidt", warm_start=True,
                  num_iters=1, error_mode="global", bucket_pad_tolerance=0.25,
@@ -172,6 +214,7 @@ class TopK(_FlatSparsifier):
     magnitude it may pick others than the JAX package does.
     """
 
+    name = "top_k"
     allreduce = False
     payload_dtypes = ("float", "int32")
 
@@ -192,9 +235,11 @@ class TopK(_FlatSparsifier):
 
 def make_compressor(name: str, rank: int = 2, **kw) -> Compressor:
     """The port's compressors by registry name."""
-    registry = {"powersgd": PowerSGDCompressor, "top_k": TopK}
+    registry = {"identity": lambda: IdentityCompressor(**kw),
+                "powersgd": lambda: PowerSGDCompressor(rank=rank, **kw),
+                "top_k": lambda: TopK(rank=rank, **kw)}
     if name not in registry:
         raise NotImplementedError(
             f"compressor {name!r} is not ported yet (ROADMAP queue A, item "
             f"15); ported: {sorted(registry)}")
-    return registry[name](rank=rank, **kw)
+    return registry[name]()

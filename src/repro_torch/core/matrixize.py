@@ -274,12 +274,22 @@ def plan_flat(parts, wire_dtype: str = "auto",
     ``parts`` need only ``.shape`` and ``.dtype``; their first ``lead`` dims
     are worker dims and are not part of the plan.  ``"auto"`` keeps each
     part's dtype (same-dtype parts share a chunk, in input order);
-    ``"float32"`` casts every part into one chunk; ``"int8"``/``"int4"``
-    put every float part into one quantized chunk and keep integer parts
-    (top-k indices) in chunks of their own dtype, as ``"auto"`` does.
-    ``max_chunk_bytes`` starts a fresh chunk once the open one would exceed
-    it (a part never spans two chunks).  Chunk order follows first
-    appearance of each chunk kind; slots follow input order.
+    ``"float32"`` casts every float part into one chunk; ``"int8"``/
+    ``"int4"`` put every float part into one quantized chunk.  Under every
+    wire, integer parts (top-k indices) keep exact chunks of their own
+    dtype, as ``"auto"`` keeps them.  ``max_chunk_bytes`` starts a fresh
+    chunk once the open one would exceed it (a part never spans two
+    chunks).  Chunk order follows first appearance of each chunk kind;
+    slots follow input order.
+
+    Declared divergence from ``repro.core.matrixize.plan_flat``: the JAX
+    package casts integer parts into the float chunk under ``"float32"``
+    (and ``"bfloat16"``).  float32 holds integers exactly only up to 2²⁴,
+    so a top-k index of a larger leaf rounds, and the aggregate scatters
+    its value to the wrong coordinate while error feedback subtracts the
+    correctly placed local reconstruction.  Here the indices keep their
+    int32 chunk, which costs Top-K one more gather per step on that wire:
+    budget (3, 1, 2) where the reference declares (2, 1, 1).
     """
     check_wire_dtype(wire_dtype)
     quant = wire_dtype if wire_dtype in QUANT_WIRE_DTYPES else None
@@ -293,7 +303,8 @@ def plan_flat(parts, wire_dtype: str = "auto",
             wd = torch.int8 if quant == "int8" else torch.uint8
             key, label, itemsize = quant, quant, _QUANT_ITEMSIZE[quant]
         else:
-            wd = cast if cast is not None else p.dtype
+            wd = (cast if cast is not None and p.dtype.is_floating_point
+                  else p.dtype)
             key, label, itemsize = wd, None, wd.itemsize
         size = math.prod(shape)
         open_chunk = by_key.get(key)

@@ -5,6 +5,8 @@ the same seed."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator
+
 import numpy as np
 
 
@@ -52,3 +54,13 @@ class MarkovLM:
             out[:, t + 2] = nxt
             c1, c2 = c2, nxt
         return out
+
+    def batches(self, batch: int, seq: int) -> Iterator[dict]:
+        """Endless stream of numpy batches ``{"tokens", "labels"}``, each
+        ``(batch, seq)``: batch ``step`` of :meth:`sample`, step 0 first,
+        split into inputs and next-token labels."""
+        step = 0
+        while True:
+            toks = self.sample(batch, seq, step)
+            yield {"tokens": toks[:, :-1], "labels": toks[:, 1:].copy()}
+            step += 1

@@ -3,9 +3,9 @@ tree-level EF apply.
 
 A CPU tensor takes the plain PyTorch version (:mod:`repro_torch.kernels.
 ref`); a CUDA tensor launches the hand-written kernel
-(:mod:`repro_torch.kernels.lowrank`, :mod:`repro_torch.kernels.quant`),
-which raises on what it does not take.  There is no fallback from a CUDA
-tensor to the plain version.
+(:mod:`repro_torch.kernels.lowrank`, :mod:`repro_torch.kernels.quant`,
+:mod:`repro_torch.kernels.ef_apply`), which raises on what it does not
+take.  There is no fallback from a CUDA tensor to the plain version.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import tree
+from repro_torch.kernels import ef_apply as _ef
 from repro_torch.kernels import lowrank, quant, ref
 
 
@@ -32,6 +33,16 @@ def lowrank_backproject(m: torch.Tensor, p_hat: torch.Tensor) -> torch.Tensor:
     if _on_cpu(m, p_hat):
         return ref.lowrank_backproject(m, p_hat)
     return lowrank.lowrank_backproject(m, p_hat)
+
+
+def ef_apply(x: torch.Tensor, mom: torch.Tensor, p_hat: torch.Tensor,
+             q: torch.Tensor, lr: float, lam: float):
+    """Fused decompress + momentum + parameter update for (a batch of)
+    matrices: ``mom' = λ·mom + P̂ Qᵀ``, ``x' = x − lr·(P̂ Qᵀ + mom')``.
+    Returns (x', mom'), new tensors."""
+    if _on_cpu(x, mom, p_hat, q):
+        return ref.ef_apply(x, mom, p_hat, q, lr, lam)
+    return _ef.ef_apply(x, mom, p_hat, q, lr, lam)
 
 
 def nibble_pack(q: torch.Tensor) -> torch.Tensor:

@@ -3,8 +3,8 @@
 Batched over arbitrary leading dims, the same contract as the kernels, so a
 ``(B, n, m)`` bucket slab or a ``(W, bytes)`` gathered payload checks
 against its kernel in one call.  Port of ``repro.kernels.ref``: the
-low-rank products the PowerSGD step uses and the int4 wire format the
-quantized gather uses.
+low-rank products the PowerSGD step uses, the fused error-feedback apply
+and the int4 wire format the quantized gather uses.
 """
 
 from __future__ import annotations
@@ -25,6 +25,22 @@ def lowrank_backproject(m: torch.Tensor, p_hat: torch.Tensor) -> torch.Tensor:
 def decompress(p_hat: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """Δ' = P̂ Qᵀ.  p_hat: (..., n, r), q: (..., m, r) → (..., n, m)."""
     return torch.einsum("...nr,...mr->...nm", p_hat, q)
+
+
+def ef_apply(x: torch.Tensor, mom: torch.Tensor, p_hat: torch.Tensor,
+             q: torch.Tensor, lr: float, lam: float):
+    """Fused decompress + momentum + parameter update (Alg. 2 lines 11-13):
+
+        Δ'   = P̂ Qᵀ
+        mom' = λ·mom + Δ'
+        x'   = x − lr·(Δ' + mom')
+
+    x, mom: (..., n, m); p_hat: (..., n, r); q: (..., m, r).  Returns
+    (x', mom'), new tensors."""
+    delta = torch.einsum("...nr,...mr->...nm", p_hat, q)
+    new_mom = lam * mom + delta
+    new_x = x - lr * (delta + new_mom)
+    return new_x, new_mom
 
 
 # ---------------------------------------------------------------------------

@@ -49,6 +49,26 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def worker_grads(cfg: ModelConfig, params, batch, workers: int, *,
+                 q_chunk: int, device):
+    """Each simulated worker's gradient on its own shard of ``batch``
+    (``(W, b, S)`` leaves): a tree like ``params`` of ``(W,) + shape``
+    gradients, and the list of the W worker losses."""
+    flat = tree.leaves(params)
+    grads = [torch.empty((workers,) + tuple(p.shape), device=p.device,
+                         dtype=p.dtype) for p in flat]
+    losses = []
+    for i in range(workers):
+        live = [p.detach().requires_grad_(True) for p in flat]
+        shard = {k: v[i].to(device) for k, v in batch.items()}
+        loss, metrics = model.loss_fn(tree.unflatten(params, live), shard,
+                                      cfg, q_chunk=q_chunk)
+        for buf, g in zip(grads, torch.autograd.grad(loss, live)):
+            buf[i].copy_(g)
+        losses.append(metrics["lm_loss"].detach())
+    return tree.unflatten(params, grads), losses
+
+
 def make_sim_train_step(cfg: ModelConfig, sim, hyper: TrainHyper,
                         compressor: Optional[Compressor] = None,
                         stats=None, device=None):
@@ -81,21 +101,11 @@ def make_sim_train_step(cfg: ModelConfig, sim, hyper: TrainHyper,
     w = sim.workers
 
     def step_fn(params, ef_state: EFState, batch, generator=None):
-        flat = tree.leaves(params)
-        grads = [torch.empty((w,) + tuple(p.shape), device=p.device,
-                             dtype=p.dtype) for p in flat]
-        losses = []
-        for i in range(w):
-            live = [p.detach().requires_grad_(True) for p in flat]
-            shard = {k: v[i].to(dev) for k, v in batch.items()}
-            loss, metrics = model.loss_fn(tree.unflatten(params, live), shard,
-                                          cfg, q_chunk=hyper.q_chunk)
-            for buf, g in zip(grads, torch.autograd.grad(loss, live)):
-                buf[i].copy_(g)
-            losses.append(metrics["lm_loss"].detach())
+        grads, losses = worker_grads(cfg, params, batch, w,
+                                     q_chunk=hyper.q_chunk, device=dev)
         lr = _schedule(hyper, ef_state.step)
         params, ef_state, aux = error_feedback.apply_updates(
-            compressor, params, tree.unflatten(params, grads), ef_state,
+            compressor, params, grads, ef_state,
             mspec_tree, lr=lr, momentum=hyper.momentum,
             weight_decay=hyper.weight_decay, ctx=ctx, generator=generator)
         metrics = {"lm_loss": torch.stack(losses).mean(), "lr": lr,

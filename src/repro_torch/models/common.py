@@ -59,7 +59,9 @@ def embed_init(vocab: int, d: int, generator, device=None,
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    return table[ids.long()]
+    # F.embedding, not table[ids]: indexing's backward accumulates repeated
+    # ids in an order that changes from run to run on the CPU
+    return torch.nn.functional.embedding(ids.long(), table)
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

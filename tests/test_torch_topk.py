@@ -211,12 +211,58 @@ def test_topk_single_context_matches_reference():
 
 @pytest.mark.parametrize("wire_dtype", ["auto", "float32", "int8", "int4"])
 def test_topk_declared_budget(wire_dtype):
+    """Equal to the reference's budget, except on the float32 wire: there
+    the port keeps the int32 indices in a chunk of their own (declared
+    divergence, ``matrixize.plan_flat``), one gather more than the
+    reference, which casts them into the float chunk."""
     comp = compressors.make_compressor("top_k", rank=2, wire_dtype=wire_dtype)
     want = jcomp.make_compressor("top_k", rank=2,
                                  wire_dtype=wire_dtype).declared_budget()
-    assert comp.declared_budget() == want
+    if wire_dtype == "float32":
+        assert want == (2, 1, 1)
+        assert comp.declared_budget() == (3, 1, 2)
+    else:
+        assert comp.declared_budget() == want
     if wire_dtype in ("auto", "int4"):
         assert want == (3, 1, 2)   # tests/sim/test_zoo_conformance.py ZOO_BUDGETS
+
+
+def test_plan_flat_float32_keeps_integer_chunk():
+    """Under the float32 wire float parts are cast into one chunk and int32
+    parts keep an exact chunk of their own, in first-appearance order."""
+    parts = [torch.zeros(5, dtype=torch.float64), torch.zeros(3, dtype=torch.int32),
+             torch.zeros(2), torch.zeros(4, dtype=torch.int32)]
+    plan = mz.plan_flat(parts, wire_dtype="float32")
+    assert [(c.wire_dtype, [s.index for s in c.slots]) for c in plan.chunks] == [
+        (torch.float32, [0, 2]), (torch.int32, [1, 3])]
+    buf = mz.pack_flat(plan.chunks[1], [None, torch.tensor([2**24 + 1, 7, -3],
+                                                           dtype=torch.int32),
+                                        None, torch.arange(4, dtype=torch.int32)])
+    assert buf.dtype == torch.int32 and buf[0].item() == 2**24 + 1
+
+
+def test_topk_float32_wire_large_leaf_agg_equals_recon():
+    """One 4200 × 4200 leaf (17.6 M entries, more than 2²⁴) at rank 1: the
+    8,400 selected coordinates sit at odd indices above 2²⁴, where float32
+    cannot hold an index exactly.  On one worker the aggregate must equal
+    the worker's own reconstruction, every value at its index."""
+    n, b = 4200, 8400
+    rng = np.random.default_rng(0)
+    delta = rng.random(n * n, dtype=np.float32)
+    idx = 2**24 + 1 + 2 * rng.choice((n * n - 2**24 - 1) // 2, b, replace=False)
+    delta[idx] = 10.0 + rng.random(b, dtype=np.float32)
+    deltas = {"w": torch.tensor(delta.reshape(1, n, n))}
+    stats = dist.CollectiveStats()
+    out = compressors.make_compressor("top_k", rank=1, wire_dtype="float32").step(
+        deltas, None, {"w": mz.MatrixSpec("matrix", 0)},
+        SimMesh(1).ctx(stats=stats))
+    agg, recon = out.agg["w"].reshape(-1), out.recon["w"].reshape(-1)
+    assert torch.equal(agg, recon)
+    assert torch.equal(torch.nonzero(agg).squeeze(1),
+                       torch.tensor(np.sort(idx), dtype=torch.long))
+    assert torch.equal(agg[idx], torch.tensor(delta[idx]))
+    assert stats.kinds == ["gather", "gather"]
+    assert stats.itemsizes == [4, 4]
 
 
 class _Identity(compressors.Compressor):
