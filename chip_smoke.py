@@ -11,15 +11,20 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. kernels  — at each of the six shape buckets of Llama-3-8B width with 2
               layers (2 simulated workers folded into the batch), hold
               ``lowrank_project`` and ``lowrank_backproject`` against their
-              plain PyTorch versions and time kernel, plain version, one
-              ``torch.bmm`` of the same product, and the memory-bandwidth
-              bound.  Also ranks 1, 4, 32 at one shape and a ragged 2-D
-              input.  Then hold ``nibble_pack`` and ``nibble_unpack`` bit
-              for bit against their plain versions (every int8 code, every
-              byte, odd, long, batched and unaligned shapes, and the int4
-              chunk of the Top-K path) and time them at that chunk.  Then
-              drive ``ops.ef_apply`` (the fused error-feedback apply, whose
-              entry point is its main path) once at each of the six
+              plain PyTorch versions, check that a second call gives the
+              same bits, and time kernel, plain version, one ``torch.bmm``
+              of the same product (by CUDA events and by CUDA-graph replay)
+              and the memory-bandwidth bound.  Then ranks 1, 3, 4, 17, 32,
+              B = 1, an input one float past a 16-byte boundary, and the
+              ragged 2-D input (1000, 1023) (timed by graph replay beside
+              ``torch.mm``).  Then the same at the five bucket slabs of the
+              benchmark LM (4 workers folded into the batch), timed by
+              graph replay.  Then hold ``nibble_pack`` and ``nibble_unpack``
+              bit for bit against their plain versions (every int8 code,
+              every byte, odd, long, batched and unaligned shapes, and the
+              int4 chunk of the Top-K path) and time them at that chunk.
+              Then drive ``ops.ef_apply`` (the fused error-feedback apply,
+              whose entry point is its main path) once at each of the six
               parameter slabs, hold every result against its plain version,
               time kernel, plain version and bound by CUDA-graph replay,
               and check a ragged set of shapes and ranks.
@@ -32,14 +37,17 @@ Phases, in order; any failure raises and the script exits non-zero:
               loss, bits, collectives and kernel launches per step.  Then
               the same LM on the card against the CPU from one initial
               state.  It runs before any profiler does: the host-bound
-              step is slower once ``torch.profiler`` has run.
+              step is slower once ``torch.profiler`` has run.  Then a
+              profiler trace of one call of each low-rank kernel must hold
+              exactly one kernel.
 5. powersgd — 5 EF-PowerSGD steps of the full-width 2-layer Llama-3-8B with
               2 simulated workers; every low-rank kernel must launch once per
               bucket per step.  One more step under ``torch.profiler``:
               device time by kernel class against the step.
 6. top_k    — 5 EF-Top-K steps of the same model on the int4 gather wire:
               1 reduce and 2 gathers per step, each nibble kernel launched
-              once per step, no low-rank kernel.  One more step profiled.
+              once per step, no low-rank kernel.  One more step profiled;
+              every kernel class of the two profiles must match a kernel.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after.  Float32 products run in full float32: TF32 is switched
@@ -98,12 +106,12 @@ def nvidia_smi() -> str:
 
 
 def ptxas_summary(log: str):
-    """(kernel<RP,VEC>, registers, spill line) per compiled kernel, from
-    nvcc's -Xptxas -v output."""
+    """(kernel<RP,VEC>, registers, spill line, shared-memory bytes) per
+    compiled kernel, from nvcc's -Xptxas -v output."""
     out, name, spills = [], None, ""
     for line in log.splitlines():
         m = re.search(r"Function properties for \S*?"
-                      r"(backproject_kernel|project_kernel|sum_splits_kernel"
+                      r"(backproject_kernel|project_kernel"
                       r"|unpack_kernel|pack_kernel|ef_apply_kernel)"
                       r"(?:ILi(\d+)ELi(\d+)E)?", line)
         if m:
@@ -111,7 +119,8 @@ def ptxas_summary(log: str):
         elif "spill" in line:
             spills = line.strip()
         elif name and (m := re.search(r"Used (\d+) registers", line)):
-            out.append((name, int(m.group(1)), spills))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append((name, int(m.group(1)), spills, int(smem.group(1)) if smem else 0))
             name = None
     return out
 
@@ -177,69 +186,133 @@ def check_close(torch, ref, got, plain, m, f, kind):
     return err.max().item(), worst
 
 
-def kernel_phase(torch, lowrank, ref, shapes, peaks):
-    """Hold both kernels against their plain versions at the main path's
-    shapes and time them; returns per-kernel totals over the shapes."""
+def lowrank_bound(m, f, out_numel, r, peaks):
+    """(bound ms, "bytes" or "operations"): M, the factor and the output each
+    moved once over the memory rate, or 2r flops per element of M over the
+    fp32 rate, whichever is longer."""
     _, bw, flops = peaks
-    gen = torch.Generator("cuda").manual_seed(0)
-    totals = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                  "bound_ms": 0.0, "max_abs_err": 0.0, "bound_by": set()}
-              for k in ("project", "backproject")}
-    for b, n, m_ in shapes:
+    byte_ms = 4 * (m.numel() + f.numel() + out_numel) / bw * 1e3
+    op_ms = 2 * m.numel() * r / flops * 1e3
+    return max(byte_ms, op_ms), ("bytes" if byte_ms >= op_ms else "operations")
+
+
+def slab_rows(torch, lowrank, ref, slabs, peaks, seed, events):
+    """At each (B, n, m) slab, rank RANK: hold both kernels against their
+    plain versions, check that a second call gives the same bits, and time
+    kernel, plain version and one ``torch.bmm`` of the same product by
+    CUDA-graph replay (``*_graph_ms``); with ``events``, also by CUDA events
+    around back-to-back calls (``kernel_ms``, ``plain_ms``,
+    ``library_ms``).  Returns one row per slab and kernel."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    rows = []
+    for b, n, m_ in slabs:
         m = torch.randn((b, n, m_), generator=gen, device="cuda")
         q = torch.randn((b, m_, RANK), generator=gen, device="cuda")
         p = torch.randn((b, n, RANK), generator=gen, device="cuda")
+        mt = m.transpose(1, 2)
         cases = {
             "project": (lowrank.lowrank_project, ref.lowrank_project, q,
-                        lambda: torch.bmm(m, q), (b, n, RANK)),
+                        lambda: torch.bmm(m, q), b * n * RANK),
             "backproject": (lowrank.lowrank_backproject, ref.lowrank_backproject,
-                            p, lambda: torch.bmm(m.transpose(1, 2), p),
-                            (b, m_, RANK)),
+                            p, lambda: torch.bmm(mt, p), b * m_ * RANK),
         }
         iters = max(3, min(50, int(2e10 / (4 * b * n * m_))))
-        for kind, (kern, plain_fn, f, lib_fn, out_shape) in cases.items():
-            got, plain = kern(m, f), plain_fn(m, f)
-            err, worst = check_close(torch, ref, got, plain, m, f, kind)
+        # both kernels timed before any check, after a round of calls whose
+        # time is dropped: the first kernels after the float64 reference of
+        # a 4 GB slab (this slab's or the last one's) run some 10 % slower
+        time_ms(torch, lambda: lowrank.lowrank_project(m, q), iters)
+        slab = {}
+        for kind, (kern, plain_fn, f, lib_fn, out_numel) in cases.items():
+            got = kern(m, f)
+            if not torch.equal(got, kern(m, f)):
+                raise AssertionError(f"{kind} {(b, n, m_)}: two calls on the same "
+                                     f"inputs differ")
+            plan = getattr(lowrank, f"plan_{kind}")(b, n, m_, RANK,
+                                                    lowrank.sm_count(m.device))
+            row = {"kernel": f"lowrank_{kind}", "shape": [b, n, m_], "rank": RANK,
+                   "ctas": plan.ctas, "cluster": plan.cluster,
+                   "repeat_bit_identical": True}
+            if events:
+                row.update({
+                    "kernel_ms": time_ms(torch, lambda: kern(m, f), iters),
+                    "plain_ms": time_ms(torch, lambda: plain_fn(m, f), iters),
+                    "library_ms": time_ms(torch, lib_fn, iters)})
+            row.update({
+                "kernel_graph_ms": graph_ms(torch, lambda: kern(m, f), iters),
+                "plain_graph_ms": graph_ms(torch, lambda: plain_fn(m, f), iters),
+                "library_graph_ms": graph_ms(torch, lib_fn, iters)})
+            row["bound_ms"], row["bound_by"] = lowrank_bound(m, f, out_numel, RANK,
+                                                             peaks)
+            row["bound_share"] = row["bound_ms"] / row["kernel_graph_ms"]
+            slab[kind] = (row, got)
+        for kind, (row, got) in slab.items():
+            _, plain_fn, f, _, _ = cases[kind]
+            plain = plain_fn(m, f)
+            row["max_abs_err"], row["worst_over_tol"] = check_close(
+                torch, ref, got, plain, m, f, kind)
             truth = plain_fn(m.double(), f.double())
-            err64 = (got.double() - truth).abs().max().item()
-            plain64 = (plain.double() - truth).abs().max().item()
-            del truth
-            row = {
-                "kernel": f"lowrank_{kind}", "shape": [b, n, m_], "rank": RANK,
-                "max_abs_err": err, "worst_over_tol": worst,
-                "err_vs_fp64": err64, "plain_err_vs_fp64": plain64,
-                "kernel_ms": time_ms(torch, lambda: kern(m, f), iters),
-                "plain_ms": time_ms(torch, lambda: plain_fn(m, f), iters),
-                "library_ms": time_ms(torch, lib_fn, iters),
-            }
-            nbytes = 4 * (m.numel() + f.numel() + math.prod(out_shape))
-            byte_ms = nbytes / bw * 1e3
-            op_ms = 2 * m.numel() * RANK / flops * 1e3
-            row["bound_ms"] = max(byte_ms, op_ms)
-            row["bound_by"] = "bytes" if byte_ms >= op_ms else "operations"
-            row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+            row["err_vs_fp64"] = (got.double() - truth).abs().max().item()
+            row["plain_err_vs_fp64"] = (plain.double() - truth).abs().max().item()
+            del truth, plain
             print(json.dumps(row), flush=True)
-            t = totals[kind]
-            t["ms"] += row["kernel_ms"]
-            for key in ("plain_ms", "library_ms", "bound_ms"):
-                t[key] += row[key]
-            t["max_abs_err"] = max(t["max_abs_err"], err)
-            t["bound_by"].add(row["bound_by"])
-        del m, q, p, got, plain
+            rows.append(row)
+        del m, q, p, mt, slab, got
         torch.cuda.empty_cache()
+    return rows
 
-    # other ranks at one shape, and a ragged 2-D input (scalar load path)
-    for shape, r in [((8, 4096, 4096), 1), ((8, 4096, 4096), 4),
-                     ((8, 4096, 4096), 32), ((1000, 1023), 3)]:
-        m = torch.randn(shape, generator=gen, device="cuda")
+
+def kernel_totals(rows, ms_key, plain_key, library_key):
+    """Per-kernel sums of ``rows``' times, bounds and largest error."""
+    totals = {}
+    for kind in ("project", "backproject"):
+        mine = [r for r in rows if r["kernel"] == f"lowrank_{kind}"]
+        totals[kind] = {
+            "ms": sum(r[ms_key] for r in mine),
+            "plain_ms": sum(r[plain_key] for r in mine),
+            "library_ms": sum(r[library_key] for r in mine),
+            "bound_ms": sum(r["bound_ms"] for r in mine),
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "bound_by": {r["bound_by"] for r in mine}}
+    return totals
+
+
+# other ranks, B = 1, an input one float past a 16-byte boundary, and the
+# ragged 2-D check (1000, 1023) whose rows are never 16-byte aligned
+RANK_CHECKS = [((8, 4096, 4096), r, 0) for r in (1, 3, 4, 17, 32)] + [
+    ((1, 4096, 4096), RANK, 0), ((8, 4096, 4096), RANK, 1), ((1000, 1023), 3, 0)]
+
+
+def kernel_phase(torch, lowrank, ref, shapes, peaks):
+    """Hold both kernels against their plain versions at the main path's
+    shapes and time them; then the checks of ``RANK_CHECKS``.  Returns
+    per-kernel totals over the shapes."""
+    rows = slab_rows(torch, lowrank, ref, shapes, peaks, seed=0, events=True)
+    totals = kernel_totals(rows, "kernel_ms", "plain_ms", "library_ms")
+    graph = kernel_totals(rows, "kernel_graph_ms", "plain_graph_ms",
+                          "library_graph_ms")
+    print(json.dumps({"check": "llama slabs, summed", **{
+        f"{kind}_{key}": graph[kind][key]
+        for kind in graph for key in ("ms", "plain_ms", "library_ms")},
+        "reading": "graph replay; the kernels line gives the CUDA-event sums"}),
+        flush=True)
+
+    gen = torch.Generator("cuda").manual_seed(2)
+    for shape, r, offset in RANK_CHECKS:
+        m = torch.empty(math.prod(shape) + offset, device="cuda")[offset:].view(shape)
+        m.copy_(torch.randn(shape, generator=gen, device="cuda"))
         q = torch.randn(shape[:-2] + (shape[-1], r), generator=gen, device="cuda")
         p = torch.randn(shape[:-2] + (shape[-2], r), generator=gen, device="cuda")
-        e1, _ = check_close(torch, ref, lowrank.lowrank_project(m, q),
-                            ref.lowrank_project(m, q), m, q, "project")
-        e2, _ = check_close(torch, ref, lowrank.lowrank_backproject(m, p),
-                            ref.lowrank_backproject(m, p), m, p, "backproject")
+        got_q, got_p = lowrank.lowrank_project(m, q), lowrank.lowrank_backproject(m, p)
+        e1, _ = check_close(torch, ref, got_q, ref.lowrank_project(m, q), m, q,
+                            "project")
+        e2, _ = check_close(torch, ref, got_p, ref.lowrank_backproject(m, p), m, p,
+                            "backproject")
+        if not (torch.equal(got_q, lowrank.lowrank_project(m, q))
+                and torch.equal(got_p, lowrank.lowrank_backproject(m, p))):
+            raise AssertionError(f"{shape} r={r}: two calls on the same inputs differ")
         row = {"check": "rank", "shape": list(shape), "rank": r,
-               "project_max_abs_err": e1, "backproject_max_abs_err": e2}
+               "offset_floats": offset, "project_max_abs_err": e1,
+               "backproject_max_abs_err": e2}
         if m.ndim == 2:
             # the 2-D variants (B1a/B2a): device times beside one torch.mm
             # and the bound (each of M, the factor and the output moved once)
@@ -251,17 +324,54 @@ def kernel_phase(torch, lowrank, ref, shapes, peaks):
                 "backproject_ms": dev(lambda: lowrank.lowrank_backproject(m, p)),
                 "backproject_plain_ms": dev(lambda: ref.lowrank_backproject(m, p)),
                 "backproject_library_ms": dev(lambda: torch.mm(m.t(), p))})
-            for kind, f, rows in (("project", q, shape[0]), ("backproject", p, shape[1])):
-                byte_ms = 4 * (m.numel() + f.numel() + rows * r) / peaks[1] * 1e3
-                op_ms = 2 * m.numel() * r / peaks[2] * 1e3
-                row[f"{kind}_bound_ms"] = max(byte_ms, op_ms)
-                row[f"{kind}_bound_by"] = "bytes" if byte_ms >= op_ms else "operations"
+            for kind, f, rows_out in (("project", q, shape[0]),
+                                      ("backproject", p, shape[1])):
+                row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = lowrank_bound(
+                    m, f, rows_out * r, r, peaks)
         print(json.dumps(row), flush=True)
         totals["project"]["max_abs_err"] = max(totals["project"]["max_abs_err"], e1)
         totals["backproject"]["max_abs_err"] = max(
             totals["backproject"]["max_abs_err"], e2)
+        del m, q, p, got_q, got_p
     torch.cuda.synchronize()
     return totals
+
+
+def lm_slab_phase(torch, lowrank, ref, slabs, peaks):
+    """Both kernels at the benchmark LM's bucket slabs (its workers folded
+    into B): held against the plain version, a second call bit for bit, and
+    kernel, plain version, one ``torch.bmm`` and the bound by graph replay."""
+    rows = slab_rows(torch, lowrank, ref, slabs, peaks, seed=4, events=False)
+    t = kernel_totals(rows, "kernel_graph_ms", "plain_graph_ms", "library_graph_ms")
+    print(json.dumps({"check": "lm slabs, summed", **{
+        f"{kind}_{key}": t[kind][key] for kind in t
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}}),
+        flush=True)
+    return rows
+
+
+def one_launch_per_call(torch, lowrank, slab):
+    """A torch.profiler trace of one call of each kernel holds one kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    b, n, m_ = slab
+    m = torch.randn(slab, device="cuda")
+    for kind, f in (("project", torch.randn(b, m_, RANK, device="cuda")),
+                    ("backproject", torch.randn(b, n, RANK, device="cuda"))):
+        call = getattr(lowrank, f"lowrank_{kind}")
+        call(m, f)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call(m, f)
+            torch.cuda.synchronize()
+        kernels = [(e.key, e.count) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        print(json.dumps({"check": "one launch per call", "kernel": kind,
+                          "shape": list(slab), "device_kernels": kernels}), flush=True)
+        if len(kernels) != 1 or kernels[0][1] != 1 or f"{kind}_kernel" not in kernels[0][0]:
+            raise AssertionError(f"lowrank_{kind}: one call ran {kernels}, want one "
+                                 f"{kind}_kernel")
 
 
 def quant_phase(torch, quant, ref, chunk_shape, peaks):
@@ -504,7 +614,7 @@ def check_topk_parity(name, l_cpu, l_gpu, p_cpu, p_gpu):
             f"{TOPK_FLIP_SHARE}), max {dparam:.2e} (limit {TOPK_FLIP_ATOL})")
 
 
-KERNEL_CLASSES = (("lowrank", ("project_kernel", "sum_splits")),
+KERNEL_CLASSES = (("lowrank", ("project_kernel",)),
                   ("nibble", ("pack_kernel",)),
                   ("topk", ("topk", "sort", "radix", "select")),
                   ("gemm", ("gemm",)), ("copy", ("memcpy", "memset")))
@@ -536,6 +646,7 @@ def profile_phase(torch, path, step, params, ef, batch, step_ms):
         "device_ms_by_class": classes,
         "top_kernels": [{"name": e.key[:90], "ms": dev_ms(e), "calls": e.count}
                         for e in top]}), flush=True)
+    return classes
 
 
 def reset_all_launches(kernel_mods) -> None:
@@ -551,7 +662,8 @@ def train_phase(torch, mods, kernel_mods, cfg, path, compressor, stats=None,
                 per_step_check=None):
     """TRAIN_STEPS steps of the full-width model on one path, with every
     launch count set to 0 just before and read just after; then one more
-    step profiled.  Returns the launch counts."""
+    step profiled.  Returns the launch counts and the profiled step's device
+    ms by kernel class."""
     train, tree, SimMesh, MarkovLM = mods
     sim = SimMesh(WORKERS)
     step, init = train.make_sim_train_step(cfg, sim, train.TrainHyper(),
@@ -601,9 +713,9 @@ def train_phase(torch, mods, kernel_mods, cfg, path, compressor, stats=None,
         raise AssertionError(f"{path}: step counter {ef.step}")
     if stats is not None:
         stats.reset()
-    profile_phase(torch, path, step, params, ef, batches[0],
-                  statistics.median(step_ms))
-    return launches
+    classes = profile_phase(torch, path, step, params, ef, batches[0],
+                            statistics.median(step_ms))
+    return launches, classes
 
 
 LM_BUDGETS = {"identity": (1, 1, 0), "powersgd": (2, 2, 0), "top_k": (3, 1, 2)}
@@ -754,22 +866,23 @@ def main() -> None:
     for name, info in builds.items():
         print(f"  {name}: nvcc {info['seconds']:.1f} s -> "
               f"{os.path.relpath(info['path'], ROOT)}")
-        for kname, regs, spills in ptxas_summary(info["log"]):
-            print(f"    {kname}: {regs} registers, {spills}")
+        for kname, regs, spills, smem in ptxas_summary(info["log"]):
+            print(f"    {kname}: {regs} registers, {smem} bytes static shared "
+                  f"memory, {spills}")
 
     # -- 2. kernels at the main paths' shapes ---------------------------------
     cfg = dataclasses.replace(llama3_8b.config(), num_layers=2)
-    meta = model.init(cfg, None, device="meta")
-    shapes = []
-    for p, spec in zip(tree.leaves(meta), tree.leaves(model.mspecs(cfg))):
-        ms = matrixize.matrix_shape(tuple(p.shape), spec)
-        shapes.append(None if ms is None else (math.prod(ms[0]), ms[1], ms[2]))
-    buckets = matrixize.plan_buckets(shapes).buckets
+    buckets = bench.model_buckets(cfg)
     if len(buckets) != 6:
         raise AssertionError(f"expected 6 buckets, planned {len(buckets)}")
     slabs = [(WORKERS * bk.count, bk.n, bk.m) for bk in buckets]
     print(f"bucket slabs (workers folded into B): {slabs}")
     totals = kernel_phase(torch, lowrank, ref, slabs, peaks)
+    lm_spec = bench.LMSpec()
+    lm_buckets = bench.model_buckets(bench._make_cfg(lm_spec))
+    lm_slabs = [(lm_spec.workers * bk.count, bk.n, bk.m) for bk in lm_buckets]
+    print(f"benchmark-LM bucket slabs (workers folded into B): {lm_slabs}")
+    lm_slab_phase(torch, lowrank, ref, lm_slabs, peaks)
     chunk_shape = topk_chunk_shape(torch, cfg, model, matrixize, tree)
     print(f"Top-K int4 chunk (workers x codes): {chunk_shape}")
     nibble_rows = quant_phase(torch, quant, ref, chunk_shape, peaks)
@@ -801,22 +914,18 @@ def main() -> None:
 
     # -- 4. the benchmark LM of the paper tables ------------------------------
     t_lm = time.perf_counter()
-    lm_cfg = bench._make_cfg(bench.LMSpec())
-    lm_shapes = []
-    for p, spec in zip(tree.leaves(model.init(lm_cfg, None, device="meta")),
-                       tree.leaves(model.mspecs(lm_cfg))):
-        ms = matrixize.matrix_shape(tuple(p.shape), spec)
-        lm_shapes.append(None if ms is None else (math.prod(ms[0]), ms[1], ms[2]))
-    lm_buckets = len(matrixize.plan_buckets(lm_shapes).buckets)
     bench_lm_phase(torch, bench, compressors, CollectiveStats, kernel_mods,
-                   lm_buckets)
+                   len(lm_buckets))
     bench_lm_parity(torch, bench, compressors, tree)
     print(f"bench_lm: {time.perf_counter() - t_lm:.1f} s")
+    # the first profiler of the run: after the host-bound LM phase
+    one_launch_per_call(torch, lowrank, lm_slabs[1])
 
     # -- 5. main path: EF-PowerSGD, full-width 2-layer Llama-3-8B -------------
     tmods = (train, tree, SimMesh, MarkovLM)
-    psgd = train_phase(torch, tmods, kernel_mods, cfg, "powersgd",
-                       compressors.make_compressor("powersgd", rank=RANK))
+    psgd, psgd_classes = train_phase(torch, tmods, kernel_mods, cfg, "powersgd",
+                                     compressors.make_compressor("powersgd",
+                                                                 rank=RANK))
     want = {"lowrank_project": TRAIN_STEPS * len(buckets),
             "lowrank_backproject": TRAIN_STEPS * len(buckets),
             "nibble_pack": 0, "nibble_unpack": 0, "ef_apply": 0}
@@ -838,15 +947,19 @@ def main() -> None:
     topk_comp = compressors.make_compressor("top_k", rank=RANK, wire_dtype="int4")
     if topk_comp.declared_budget() != (3, 1, 2):
         raise AssertionError(f"top_k budget {topk_comp.declared_budget()}")
-    topk = train_phase(torch, tmods, kernel_mods, cfg, "top_k_int4", topk_comp,
-                       stats=CollectiveStats(),
-                       per_step_check=one_reduce_two_gathers)
+    topk, topk_classes = train_phase(torch, tmods, kernel_mods, cfg, "top_k_int4",
+                                     topk_comp, stats=CollectiveStats(),
+                                     per_step_check=one_reduce_two_gathers)
     want = {"lowrank_project": 0, "lowrank_backproject": 0,
             "nibble_pack": TRAIN_STEPS, "nibble_unpack": TRAIN_STEPS,
             "ef_apply": 0}
     if topk != want:
         raise AssertionError(f"top_k launches {topk}, want {want} (one launch "
                              f"per kernel per step)")
+    idle = [k for k, _ in KERNEL_CLASSES if not psgd_classes[k] + topk_classes[k] > 0]
+    if idle:
+        raise AssertionError(f"kernel classes {idle} matched no kernel of the "
+                             f"profiled steps: their names in KERNEL_CLASSES are stale")
 
     summary = []
     for kind, replaces in (("project", "src/repro/kernels/lowrank.py:111"),

@@ -22,6 +22,7 @@ adaptive-rank controllers (ROADMAP queue A, item 8) and
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 
 import numpy as np
@@ -69,6 +70,18 @@ def _make_cfg(spec: LMSpec) -> ModelConfig:
         head_dim=spec.d_model // spec.heads, d_ff=spec.d_model * 4,
         vocab_size=spec.vocab, rope_theta=10000.0,
         slots=(LayerSlot("attn", "dense"),))
+
+
+def model_buckets(cfg: ModelConfig):
+    """The shape buckets the bucketed engine plans for ``cfg``'s compressed
+    leaves (each with its ``count``, ``n`` and ``m``), found on the meta
+    device, so it allocates nothing at any width."""
+    shapes = []
+    for p, spec in zip(tree.leaves(model.init(cfg, None, device="meta")),
+                       tree.leaves(model.mspecs(cfg))):
+        ms = matrixize.matrix_shape(tuple(p.shape), spec)
+        shapes.append(None if ms is None else (math.prod(ms[0]), ms[1], ms[2]))
+    return matrixize.plan_buckets(shapes).buckets
 
 
 def payload_floats(params, specs, comp_state):

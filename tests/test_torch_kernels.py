@@ -8,20 +8,38 @@ against the plain version on the card by ``chip_smoke.py`` and by the
 ``cuda``-marked test below.
 """
 
+import dataclasses
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.bench import common as bench
+from repro_torch.configs import llama3_8b
 from repro_torch.kernels import _build, lowrank, ops, ref
 
 ATOL = RTOL = 1e-4
 
-# 2-D, 3-D and 4-D inputs, r from 1 to 8, ragged n and m
+# the bucket slabs (B, n, m) of the benchmark LM (LMSpec: d_model 128, 2
+# layers, vocab 256) with its 4 workers folded into B, and of full-width
+# 2-layer Llama-3-8B with 2 workers
+LM_SLABS = [(8, 512, 128), (16, 128, 512), (4, 256, 128), (4, 128, 256),
+            (32, 128, 128)]
+LLAMA_SLABS = [(2, 128256, 4096), (2, 4096, 128256), (4, 14336, 4096),
+               (8, 4096, 14336), (8, 4096, 4096), (8, 4096, 1024)]
+RAGGED_2D = ((1000, 1023), 3)
+
+# 2-D, 3-D and 4-D inputs, r from 1 to 8, ragged n and m; the benchmark
+# LM's slabs at rank 2 and the ragged 2-D check
 CASES = [((37, 53), 1), ((64, 128), 2), ((3, 45, 70), 3),
          ((2, 3, 33, 17), 4), ((5, 129, 31), 8), ((1, 300, 7), 5)]
+CASES += [(slab, 2) for slab in LM_SLABS] + [RAGGED_2D]
 
 
 def _inputs(shape, r, seed):
@@ -98,15 +116,124 @@ def test_build_path_is_keyed_by_source(tmp_path, monkeypatch):
     assert first.parent == _build.BUILD_DIR
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape,r", [((3, 100, 64), 2), ((1000, 1023), 3),
-                                     ((8, 512, 1024), 32)])
-def test_cuda_kernels_match_plain(shape, r):
+# ---------------------------------------------------------------------------
+# the launch plan: a pure function of (B, n, m, r, SMs, alignment)
+# ---------------------------------------------------------------------------
+
+H100_SMS = 132
+PLANNERS = {"project": lowrank.plan_project, "backproject": lowrank.plan_backproject}
+PLAN_SHAPES = ([(slab, 2) for slab in LLAMA_SLABS + LM_SLABS]
+               + [((1,) + RAGGED_2D[0], RAGGED_2D[1])])
+
+
+def _slabs(cfg, workers):
+    return [(workers * bk.count, bk.n, bk.m) for bk in bench.model_buckets(cfg)]
+
+
+def test_listed_slabs_are_the_models_buckets():
+    assert _slabs(bench._make_cfg(bench.LMSpec()), bench.LMSpec().workers) == LM_SLABS
+    llama = dataclasses.replace(llama3_8b.config(), num_layers=2)
+    assert _slabs(llama, 2) == LLAMA_SLABS
+
+
+def _check_plan(kind, plan, b, n, m, r):
+    """The plan's invariants, as ``lowrank.cu`` checks them before a launch."""
+    reduced = m if kind == "project" else n
+    assert 1 <= plan.cluster <= lowrank.CLUSTER_MAX == 8
+    # the ranks' runs of the reduced dim, as lowrank.cu cuts them, cover it
+    # exactly once, none empty
+    runs = [(k * plan.extent, min(reduced, (k + 1) * plan.extent))
+            for k in range(plan.cluster)]
+    assert runs[0][0] == 0 and runs[-1][1] == reduced
+    assert all(a < z for a, z in runs)
+    assert all(z == a for (_, z), (a, _) in zip(runs, runs[1:]))
+    assert plan.vec in (1, 4)
+    if plan.vec == 4:
+        assert m % 4 == 0
+    if kind == "project":
+        assert plan.col_warps in (1, 2, 4, 8)
+        assert plan.tile * plan.col_warps % lowrank.NUM_WARPS == 0
+        assert 1 <= plan.tile * plan.col_warps <= 32
+        # every warp sharing a row has a 128-column step of each rank's run
+        assert plan.col_warps * 128 <= max(128, plan.extent) + 127
+        assert plan.tiles == b * math.ceil(n / plan.tile)
+        assert 1 <= plan.window and plan.window * lowrank.rank_pad(r) <= lowrank.WINDOW_FLOATS
+        if plan.vec == 4:
+            assert plan.extent % 4 == 0 and plan.window % 4 == 0
+    else:
+        assert plan.lanes in (8, 16, 32)
+        assert plan.tile == plan.lanes * lowrank.lane_cols(lowrank.rank_pad(r))
+        assert plan.vec == 1 or lowrank.rank_pad(r) <= 8
+        assert plan.tiles == b * math.ceil(m / plan.tile)
+    assert plan.ctas == plan.tiles * plan.cluster < 2**31
+
+
+@pytest.mark.parametrize("kind", sorted(PLANNERS))
+@pytest.mark.parametrize("shape,r", PLAN_SHAPES)
+def test_launch_plan_at_main_path_slabs(kind, shape, r):
+    """At every Llama-3-8B and benchmark-LM slab and at (1000, 1023): a pure
+    function of its arguments, splits within a cluster, the reduced dim
+    covered exactly once, and a full wave of CTAs (one per SM) wherever the
+    slab holds 16 KB of M per SM."""
+    b, n, m = shape
+    plan = PLANNERS[kind](b, n, m, r, H100_SMS)
+    for other in PLAN_SHAPES:   # no state carried from call to call
+        PLANNERS[kind](*other[0], other[1], H100_SMS)
+    assert PLANNERS[kind](b, n, m, r, H100_SMS) == plan
+    _check_plan(kind, plan, b, n, m, r)
+    if 4 * b * n * m >= H100_SMS * 16 * 1024:
+        assert plan.ctas >= H100_SMS
+    unaligned = PLANNERS[kind](b, n, m, r, H100_SMS, aligned=False)
+    assert unaligned.vec == 1
+    _check_plan(kind, unaligned, b, n, m, r)
+
+
+@settings(deadline=None, max_examples=300)
+@given(kind=st.sampled_from(sorted(PLANNERS)), b=st.integers(1, 64),
+       n=st.integers(1, 5000), m=st.integers(1, 5000), r=st.integers(1, 32),
+       sms=st.sampled_from([1, 8, 114, 132]), aligned=st.booleans())
+def test_launch_plan_invariants(kind, b, n, m, r, sms, aligned):
+    plan = PLANNERS[kind](b, n, m, r, sms, aligned=aligned)
+    _check_plan(kind, plan, b, n, m, r)
+    assert aligned or plan.vec == 1
+
+
+# ---------------------------------------------------------------------------
+# on the card (skips here)
+# ---------------------------------------------------------------------------
+
+def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
-    m, q, p = (torch.tensor(a, device="cuda") for a in _inputs(shape, r, seed=1))
-    torch.testing.assert_close(lowrank.lowrank_project(m, q),
-                               ref.lowrank_project(m, q), atol=ATOL, rtol=RTOL)
-    torch.testing.assert_close(lowrank.lowrank_backproject(m, p),
-                               ref.lowrank_backproject(m, p), atol=ATOL, rtol=RTOL)
+
+
+def _offset_view(a, offset):
+    """``a`` on the card in a buffer ``offset`` floats past an aligned start."""
+    buf = torch.empty(a.size + offset, device="cuda")
+    view = buf[offset:].view(a.shape)
+    view.copy_(torch.tensor(a))
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,r", [((3, 100, 64), 2), ((1000, 1023), 3),
+                                     ((8, 512, 1024), 32), ((8, 512, 1024), 1),
+                                     ((8, 512, 1024), 3), ((8, 512, 1024), 4),
+                                     ((8, 512, 1024), 17), ((1, 4096, 640), 2),
+                                     ((2, 64, 40000), 2), ((2, 40000, 72), 2)]
+                         + [(slab, 2) for slab in LM_SLABS])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_kernels_match_plain(shape, r, offset):
+    """Both kernels within atol/rtol of the plain version, on aligned
+    inputs and on views one float past an aligned start, and bit for bit
+    the same on a second call."""
+    _cuda()
+    m_np, q_np, p_np = _inputs(shape, r, seed=1)
+    m = _offset_view(m_np, offset)
+    q, p = (torch.tensor(a, device="cuda") for a in (q_np, p_np))
+    for kern, plain, f in ((lowrank.lowrank_project, ref.lowrank_project, q),
+                           (lowrank.lowrank_backproject, ref.lowrank_backproject, p)):
+        got = kern(m, f)
+        torch.testing.assert_close(got, plain(m, f), atol=ATOL, rtol=RTOL)
+        assert torch.equal(got, kern(m, f))
