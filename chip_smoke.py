@@ -37,14 +37,25 @@ Phases, in order; any failure raises and the script exits non-zero:
               loss, bits, collectives and kernel launches per step.  Then
               the same LM on the card against the CPU from one initial
               state.  It runs before any profiler does: the host-bound
-              step is slower once ``torch.profiler`` has run.  Then a
-              profiler trace of one call of each low-rank kernel must hold
-              exactly one kernel.
-5. powersgd — 5 EF-PowerSGD steps of the full-width 2-layer Llama-3-8B with
+              step is slower once ``torch.profiler`` has run.
+5. dist     — the ``torch.distributed`` step (``make_train_step``) over a
+              real NCCL process group of world size 1, at the full width of
+              Llama-3-8B with 2 layers and 1 sequence of 1024 tokens: 3
+              PowerSGD steps and 3 Top-K steps on the int4 gather wire,
+              each against ``make_sim_train_step`` on ``SimMesh(1)`` from
+              the same initial state under phase 3's rules (bit-equal
+              expected; the largest difference is printed).  Step times,
+              peak memory, collective
+              records, real ``torch.distributed`` calls and kernel launches
+              per path; the low-rank kernels must launch on the PowerSGD
+              path, the nibble kernels on the Top-K path.  Then a profiler
+              trace of one call of each low-rank kernel must hold exactly
+              one kernel (the first profiler of the run).
+6. powersgd — 5 EF-PowerSGD steps of the full-width 2-layer Llama-3-8B with
               2 simulated workers; every low-rank kernel must launch once per
               bucket per step.  One more step under ``torch.profiler``:
               device time by kernel class against the step.
-6. top_k    — 5 EF-Top-K steps of the same model on the int4 gather wire:
+7. top_k    — 5 EF-Top-K steps of the same model on the int4 gather wire:
               1 reduce and 2 gathers per step, each nibble kernel launched
               once per step, no low-rank kernel.  One more step profiled;
               every kernel class of the two profiles must match a kernel.
@@ -58,6 +69,7 @@ power limit come just before.
 
 import concurrent.futures
 import dataclasses
+import datetime
 import json
 import math
 import os
@@ -65,6 +77,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -79,6 +92,7 @@ SOURCES = ("lowrank", "quant", "ef_apply")
 RANK = 2
 WORKERS = 2
 TRAIN_STEPS = 5
+DIST_STEPS = 3
 SEQ = 1024
 
 # published peaks (NVIDIA data sheets): HBM bytes/s and fp32 (non-tensor) FLOP/s
@@ -282,10 +296,11 @@ RANK_CHECKS = [((8, 4096, 4096), r, 0) for r in (1, 3, 4, 17, 32)] + [
     ((1, 4096, 4096), RANK, 0), ((8, 4096, 4096), RANK, 1), ((1000, 1023), 3, 0)]
 
 
-def kernel_phase(torch, lowrank, ref, shapes, peaks):
+def kernel_phase(torch, lowrank, ref, shapes, peaks, held):
     """Hold both kernels against their plain versions at the main path's
-    shapes and time them; then the checks of ``RANK_CHECKS``.  Returns
-    per-kernel totals over the shapes."""
+    shapes and time them; then the checks of ``RANK_CHECKS`` and, at rank
+    RANK, at each slab of ``held`` (shapes another path gives the kernels,
+    held without timing).  Returns per-kernel totals over the shapes."""
     rows = slab_rows(torch, lowrank, ref, shapes, peaks, seed=0, events=True)
     totals = kernel_totals(rows, "kernel_ms", "plain_ms", "library_ms")
     graph = kernel_totals(rows, "kernel_graph_ms", "plain_graph_ms",
@@ -297,7 +312,9 @@ def kernel_phase(torch, lowrank, ref, shapes, peaks):
         flush=True)
 
     gen = torch.Generator("cuda").manual_seed(2)
-    for shape, r, offset in RANK_CHECKS:
+    checks = [("rank", c) for c in RANK_CHECKS]
+    checks += [("held slab", (shape, RANK, 0)) for shape in held]
+    for what, (shape, r, offset) in checks:
         m = torch.empty(math.prod(shape) + offset, device="cuda")[offset:].view(shape)
         m.copy_(torch.randn(shape, generator=gen, device="cuda"))
         q = torch.randn(shape[:-2] + (shape[-1], r), generator=gen, device="cuda")
@@ -310,7 +327,7 @@ def kernel_phase(torch, lowrank, ref, shapes, peaks):
         if not (torch.equal(got_q, lowrank.lowrank_project(m, q))
                 and torch.equal(got_p, lowrank.lowrank_backproject(m, p))):
             raise AssertionError(f"{shape} r={r}: two calls on the same inputs differ")
-        row = {"check": "rank", "shape": list(shape), "rank": r,
+        row = {"check": what, "shape": list(shape), "rank": r,
                "offset_floats": offset, "project_max_abs_err": e1,
                "backproject_max_abs_err": e2}
         if m.ndim == 2:
@@ -374,9 +391,11 @@ def one_launch_per_call(torch, lowrank, slab):
                                  f"{kind}_kernel")
 
 
-def quant_phase(torch, quant, ref, chunk_shape, peaks):
+def quant_phase(torch, quant, ref, chunk_shape, peaks, held):
     """Hold the nibble kernels bit for bit against their plain versions and
-    time them at the int4 chunk of the Top-K path; returns per-kernel rows."""
+    time them at the int4 chunk of the Top-K path; ``held`` are the chunk
+    shapes other paths give them, held without timing.  Returns per-kernel
+    rows."""
     _, bw, _ = peaks
     gen = torch.Generator("cuda").manual_seed(1)
 
@@ -390,6 +409,7 @@ def quant_phase(torch, quant, ref, chunk_shape, peaks):
     cases += [("(4, 1001)", codes((4, 1001))), ("(3, 31)", codes((3, 31))),
               ("(5, 66)", codes((5, 66))),
               (f"Top-K int4 chunk {chunk_shape}", codes(chunk_shape))]
+    cases += [(f"held chunk {shape}", codes(shape)) for shape in held]
     mismatches = {"nibble_pack": 0, "nibble_unpack": 0}
     for name, c in cases:
         n = c.shape[-1]
@@ -571,13 +591,13 @@ def parity_phase(torch, mods, name, make_compressor, check):
 
 
 def check_powersgd_parity(name, l_cpu, l_gpu, p_cpu, p_gpu, loss_rtol=1e-4,
-                          param_atol=1e-4):
+                          param_atol=1e-4, check="card_vs_cpu"):
     """Loss within ``loss_rtol`` relative and parameters within
     ``param_atol`` (``None``: reported, not held) — fp32 summation order
     only."""
     rel = max(abs(a - b) / abs(a) for a, b in zip(l_cpu, l_gpu))
     dparam = max((a - b).abs().max().item() for a, b in zip(p_cpu, p_gpu))
-    print(json.dumps({"check": "card_vs_cpu", "path": name, "losses_cpu": l_cpu,
+    print(json.dumps({"check": check, "path": name, "losses_cpu": l_cpu,
                       "losses_card": l_gpu, "max_rel_loss_diff": rel,
                       "max_abs_param_diff": dparam}), flush=True)
     if not rel <= loss_rtol or (param_atol is not None and not dparam <= param_atol):
@@ -596,13 +616,13 @@ def check_powersgd_parity(name, l_cpu, l_gpu, p_cpu, p_gpu, loss_rtol=1e-4,
 TOPK_ATOL, TOPK_FLIP_SHARE, TOPK_FLIP_ATOL = 1e-5, 1e-4, 1e-2
 
 
-def check_topk_parity(name, l_cpu, l_gpu, p_cpu, p_gpu):
+def check_topk_parity(name, l_cpu, l_gpu, p_cpu, p_gpu, check="card_vs_cpu"):
     rel = max(abs(a - b) / abs(a) for a, b in zip(l_cpu, l_gpu))
     diffs = [(a - b).abs() for a, b in zip(p_cpu, p_gpu)]
     dparam = max(d.max().item() for d in diffs)
     beyond = sum(int((d > TOPK_ATOL).sum()) for d in diffs)
     total = sum(d.numel() for d in diffs)
-    print(json.dumps({"check": "card_vs_cpu", "path": name, "losses_cpu": l_cpu,
+    print(json.dumps({"check": check, "path": name, "losses_cpu": l_cpu,
                       "losses_card": l_gpu, "max_rel_loss_diff": rel,
                       "max_abs_param_diff": dparam,
                       "params_beyond_atol": beyond, "params": total}), flush=True)
@@ -803,10 +823,145 @@ def bench_lm_parity(torch, bench, compressors, tree):
                     loss_rtol=LM_TOPK_LOSS_RTOL if name == "top_k" else LM_LOSS_RTOL)
 
 
-def topk_chunk_shape(torch, cfg, model, matrixize, tree):
-    """(W, codes) of the int4 chunk the Top-K path packs each step: every
-    compressed leaf's budget b = r·(n+m) values per worker, each slot padded
-    to an even code count."""
+def dist_run(torch, mods, cfg, mode, compressor, stats, batches):
+    """DIST_STEPS steps of one full-width path: ``mode`` "dist" through
+    ``make_train_step`` on the process group, "sim" through
+    ``make_sim_train_step`` on ``SimMesh(1)``, from the parameters and
+    factors ``init_state`` draws from seed 0.  Returns losses, step ms,
+    the run's peak GiB (above what was allocated before it) and the final
+    parameters."""
+    train, tree, SimMesh, _ = mods
+    if mode == "dist":
+        step, init = train.make_train_step(cfg, train.TrainHyper(),
+                                           compressor=compressor, stats=stats)
+    else:
+        sim = SimMesh(1)
+        step, init = train.make_sim_train_step(cfg, sim, train.TrainHyper(),
+                                               compressor=compressor, stats=stats)
+        batches = [sim.shard(b) for b in batches]
+    base = torch.cuda.memory_allocated()
+    params, ef = init(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        params, ef, metrics = step(params, ef, batch)
+        losses.append(metrics["lm_loss"].item())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    if ef.step != DIST_STEPS or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"dist {mode}: step {ef.step}, losses {losses}")
+    return losses, step_ms, peak, params
+
+
+def dist_phase(torch, mods, kernel_mods, cfg, compressors, CollectiveStats,
+               pdist, n_buckets, smi):
+    """``make_train_step`` over a real NCCL group of world size 1 against
+    ``make_sim_train_step`` on ``SimMesh(1)``, for PowerSGD and Top-K on
+    the int4 gather wire, held as the card is held against the CPU
+    (``check_powersgd_parity``, ``check_topk_parity``: losses within 1e-4,
+    PowerSGD parameters within 1e-4, Top-K parameters under the flip rule)
+    with the simulated step in the CPU's place.  Every launch count and the
+    count of ``torch.distributed`` calls are set to 0 just before the
+    distributed run and read just after.  Returns {path: launches}."""
+    import torch.distributed as tdist
+
+    tree, MarkovLM = mods[1], mods[3]
+    data = MarkovLM(vocab=cfg.vocab_size, seed=0)
+    batches = []
+    for i in range(DIST_STEPS):
+        toks = torch.tensor(data.sample(1, SEQ, step=i), device="cuda")
+        batches.append({"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    # path: (compressor, parity rule, kernel launches per step, (reduces,
+    # gathers) recorded per step, torch.distributed calls per step: the
+    # loss's all-reduce besides the compressor's, and a quantized gather's
+    # scale sidecar in a call of its own)
+    paths = {
+        "powersgd": (lambda: compressors.make_compressor("powersgd", rank=RANK),
+                     check_powersgd_parity,
+                     {"lowrank_project": n_buckets, "lowrank_backproject": n_buckets},
+                     (2, 0), {"all_reduce": 3, "all_gather": 0}),
+        "top_k_int4": (lambda: compressors.make_compressor("top_k", rank=RANK,
+                                                           wire_dtype="int4"),
+                       check_topk_parity, {"nibble_pack": 1, "nibble_unpack": 1},
+                       (1, 2), {"all_reduce": 2, "all_gather": 3}),
+    }
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tdist.init_process_group(
+            "nccl", init_method=f"file://{tmp}/rdzv", world_size=1, rank=0,
+            timeout=datetime.timedelta(seconds=60),
+            device_id=torch.device("cuda", 0))
+        try:
+            print(f"dist: process group backend {tdist.get_backend()!r}, world "
+                  f"size {tdist.get_world_size()}, torch {torch.__version__}, "
+                  f"NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}",
+                  flush=True)
+            for path, (make, check, per_step, budget, calls) in paths.items():
+                sim_stats, stats = CollectiveStats(), CollectiveStats()
+                l_sim, ms_sim, peak_sim, p_sim = dist_run(
+                    torch, mods, cfg, "sim", make(), sim_stats, batches)
+                torch.cuda.empty_cache()
+                reset_all_launches(kernel_mods)
+                pdist.reset_calls()
+                l_dist, ms_dist, peak_dist, p_dist = dist_run(
+                    torch, mods, cfg, "dist", make(), stats, batches)
+                launches = read_all_launches(kernel_mods)
+                real_calls = dict(pdist.CALLS)
+                p_sim, p_dist = tree.leaves(p_sim), tree.leaves(p_dist)
+                check(path, l_sim, l_dist, p_sim, p_dist, check="dist_vs_sim")
+                bit_equal = l_sim == l_dist and all(
+                    torch.equal(a, b) for a, b in zip(p_sim, p_dist))
+                del p_sim, p_dist
+                torch.cuda.empty_cache()
+                n = len(stats.kinds) // DIST_STEPS
+                rec = {"kinds": stats.kinds[:n], "sizes": stats.sizes[:n],
+                       "itemsizes": stats.itemsizes[:n],
+                       "fanouts": stats.fanouts[:n],
+                       "bytes": stats.bytes_per_collective()[:n]}
+                print(json.dumps({
+                    "check": "dist", "path": path, "card": smi,
+                    "backend": tdist.get_backend(), "world_size": 1,
+                    "steps": DIST_STEPS, "losses_dist": l_dist,
+                    "losses_sim": l_sim, "bit_equal": bit_equal,
+                    "step_ms_dist": ms_dist, "step_ms_sim": ms_sim,
+                    "median_step_ms_dist": statistics.median(ms_dist),
+                    "median_step_ms_sim": statistics.median(ms_sim),
+                    "peak_gib_dist": peak_dist, "peak_gib_sim": peak_sim,
+                    "collectives_per_step": rec,
+                    "dist_calls_per_step": {k: v / DIST_STEPS
+                                            for k, v in real_calls.items()},
+                    "launches": launches}), flush=True)
+                records = lambda st: (st.kinds, st.sizes, st.itemsizes,
+                                      st.fanouts, st.overheads)
+                if records(stats) != records(sim_stats):
+                    raise AssertionError(f"dist {path}: collective records differ "
+                                         f"from the simulated step's")
+                got_budget = (stats.reduce_collectives / DIST_STEPS,
+                              stats.gather_collectives / DIST_STEPS)
+                if got_budget != budget:
+                    raise AssertionError(f"dist {path}: (reduces, gathers) per "
+                                         f"step {got_budget}, want {budget}")
+                if real_calls != {k: v * DIST_STEPS for k, v in calls.items()}:
+                    raise AssertionError(f"dist {path}: torch.distributed calls "
+                                         f"{real_calls}, want {calls} per step")
+                want = {k: 0 for k in launches}
+                want.update({k: v * DIST_STEPS for k, v in per_step.items()})
+                if launches != want:
+                    raise AssertionError(f"dist {path}: launches {launches}, "
+                                         f"want {want}")
+                out[path] = launches
+        finally:
+            tdist.destroy_process_group()
+    return out
+
+
+def topk_chunk_shape(torch, cfg, model, matrixize, tree, workers):
+    """(workers, codes) of the int4 chunk the Top-K path packs each step:
+    every compressed leaf's budget b = r·(n+m) values per worker, each slot
+    padded to an even code count."""
     meta = model.init(cfg, None, device="meta")
     parts = []
     for p, spec in zip(tree.leaves(meta), tree.leaves(model.mspecs(cfg))):
@@ -814,11 +969,11 @@ def topk_chunk_shape(torch, cfg, model, matrixize, tree):
         if ms is None:
             continue
         b = min(math.prod(ms[0]) * (ms[1] + ms[2]) * RANK, p.numel())
-        parts += [torch.empty((WORKERS, b), device="meta"),
-                  torch.empty((WORKERS, b), dtype=torch.int32, device="meta")]
+        parts += [torch.empty((workers, b), device="meta"),
+                  torch.empty((workers, b), dtype=torch.int32, device="meta")]
     plan = matrixize.plan_flat(parts, wire_dtype="int4", lead=1)
     chunk = next(c for c in plan.chunks if c.quant)
-    return (WORKERS, 2 * sum(matrixize.quant_slot_sizes(chunk)))
+    return (workers, 2 * sum(matrixize.quant_slot_sizes(chunk)))
 
 
 def main() -> None:
@@ -836,6 +991,7 @@ def main() -> None:
     from repro_torch.bench import common as bench
     from repro_torch.configs import llama3_8b
     from repro_torch.core import compressors, matrixize
+    from repro_torch.core import dist as pdist
     from repro_torch.core.dist import CollectiveStats
     from repro_torch.core.simmesh import SimMesh
     from repro_torch.data.synthetic import MarkovLM
@@ -877,17 +1033,22 @@ def main() -> None:
         raise AssertionError(f"expected 6 buckets, planned {len(buckets)}")
     slabs = [(WORKERS * bk.count, bk.n, bk.m) for bk in buckets]
     print(f"bucket slabs (workers folded into B): {slabs}")
-    totals = kernel_phase(torch, lowrank, ref, slabs, peaks)
+    # one worker per process (phase 5) gives the kernels these slabs
+    param_slabs = [(bk.count, bk.n, bk.m) for bk in buckets]
+    print(f"parameter slabs (one worker, no worker dim): {param_slabs}")
+    totals = kernel_phase(torch, lowrank, ref, slabs, peaks, held=param_slabs)
     lm_spec = bench.LMSpec()
     lm_buckets = bench.model_buckets(bench._make_cfg(lm_spec))
     lm_slabs = [(lm_spec.workers * bk.count, bk.n, bk.m) for bk in lm_buckets]
     print(f"benchmark-LM bucket slabs (workers folded into B): {lm_slabs}")
     lm_slab_phase(torch, lowrank, ref, lm_slabs, peaks)
-    chunk_shape = topk_chunk_shape(torch, cfg, model, matrixize, tree)
+    chunk_shape = topk_chunk_shape(torch, cfg, model, matrixize, tree, WORKERS)
     print(f"Top-K int4 chunk (workers x codes): {chunk_shape}")
-    nibble_rows = quant_phase(torch, quant, ref, chunk_shape, peaks)
-    param_slabs = [(bk.count, bk.n, bk.m) for bk in buckets]
-    print(f"parameter slabs (held once, no worker dim): {param_slabs}")
+    # phase 5 packs one worker's codes without a worker dim and unpacks the
+    # gathered (1, bytes) payload
+    one = topk_chunk_shape(torch, cfg, model, matrixize, tree, 1)
+    nibble_rows = quant_phase(torch, quant, ref, chunk_shape, peaks,
+                              held=[one[1:], one])
     t_ef = time.perf_counter()
     ef_rows, ef_launches = ef_apply_phase(torch, ops, ef_kernel, ref, param_slabs,
                                           peaks)
@@ -918,11 +1079,19 @@ def main() -> None:
                    len(lm_buckets))
     bench_lm_parity(torch, bench, compressors, tree)
     print(f"bench_lm: {time.perf_counter() - t_lm:.1f} s")
-    # the first profiler of the run: after the host-bound LM phase
+
+    # -- 5. the torch.distributed step over a real NCCL group -----------------
+    tmods = (train, tree, SimMesh, MarkovLM)
+    t_dist = time.perf_counter()
+    dist_launches = dist_phase(torch, tmods, kernel_mods, cfg, compressors,
+                               CollectiveStats, pdist, len(buckets), smi)
+    print(f"dist: launches on the distributed path {dist_launches}; "
+          f"{time.perf_counter() - t_dist:.1f} s")
+    # the first profiler of the run: after the host-bound LM phase and the
+    # distributed phase
     one_launch_per_call(torch, lowrank, lm_slabs[1])
 
-    # -- 5. main path: EF-PowerSGD, full-width 2-layer Llama-3-8B -------------
-    tmods = (train, tree, SimMesh, MarkovLM)
+    # -- 6. main path: EF-PowerSGD, full-width 2-layer Llama-3-8B -------------
     psgd, psgd_classes = train_phase(torch, tmods, kernel_mods, cfg, "powersgd",
                                      compressors.make_compressor("powersgd",
                                                                  rank=RANK))
@@ -934,7 +1103,7 @@ def main() -> None:
                              f"({TRAIN_STEPS} steps x {len(buckets)} buckets)")
     torch.cuda.empty_cache()
 
-    # -- 6. main path: EF-Top-K on the int4 gather wire -----------------------
+    # -- 7. main path: EF-Top-K on the int4 gather wire -----------------------
     def one_reduce_two_gathers(stats):
         print(json.dumps({"collectives": stats.kinds, "sizes": stats.sizes,
                           "itemsizes": stats.itemsizes, "fanouts": stats.fanouts,

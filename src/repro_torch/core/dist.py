@@ -3,25 +3,31 @@
 
 Model code and compressors are written against :class:`MeshCtx`.  Outside
 any data-parallel group (:data:`SINGLE`) every collective is the identity.
-Inside a :class:`~repro_torch.core.simmesh.SimMesh` step the context holds a
-:class:`SimBackend`: per-worker tensors carry a leading worker dim of size W
-(``ctx.lead``) where the JAX package mapped the step with ``vmap``, and a
-collective is the exact mean over that dim.  The mean is worker-identical,
-so it comes back once, without the worker dim; :meth:`MeshCtx.per_worker`
-stacks it again where per-worker math needs it.
+The context's backend says how a data-axis collective runs:
 
-Not ported yet: model/seq-axis collectives, weighted means,
-``broadcast_flat`` and ``sync_mode="broadcast"`` (ROADMAP queue A, items 4,
-5 and 20) and a ``torch.distributed`` backend.
+* :class:`SimBackend` — inside a :class:`~repro_torch.core.simmesh.SimMesh`
+  step: per-worker tensors carry a leading worker dim of size W
+  (``ctx.lead``) where the JAX package mapped the step with ``vmap``, and a
+  collective is the exact mean over that dim.  The mean is
+  worker-identical, so it comes back once, without the worker dim;
+  :meth:`MeshCtx.per_worker` stacks it again where per-worker math needs it.
+* :class:`DistBackend` — one worker per process over a
+  ``torch.distributed`` process group (gloo for CPU tensors, NCCL for CUDA
+  tensors): every tensor is the process's own (``ctx.lead == ()``), a mean
+  is a real ``all_reduce`` and a gather a real ``all_gather``.
+
+Not ported yet: model-axis collectives (ROADMAP queue A, item 14), weighted
+means (item 6), ``broadcast_flat`` and ``sync_mode="broadcast"`` (item 13).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as tdist
 
 from repro_torch.core import matrixize
 
@@ -102,34 +108,102 @@ class SimBackend:
     def pmean(self, x: torch.Tensor) -> torch.Tensor:
         return x.mean(dim=0)
 
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The stacked ``(W, ...)`` buffer already holds every worker's
+        payload."""
+        return x
+
+
+# the process-group backend that carries tensors of each device type
+DEVICE_BACKENDS = {"cpu": "gloo", "cuda": "nccl"}
+
+
+def check_backend_device(backend: str, device) -> None:
+    """Raise unless a ``backend`` process group carries ``device`` tensors
+    (:data:`DEVICE_BACKENDS`)."""
+    dev = torch.device(device)
+    want = DEVICE_BACKENDS.get(dev.type)
+    if backend != want:
+        raise ValueError(
+            f"a {backend!r} process group cannot carry {dev.type} tensors: "
+            f"{dev.type} needs a {want!r} group")
+
+
+# torch.distributed calls made by every DistBackend of this process, by kind
+CALLS = {"all_reduce": 0, "all_gather": 0}
+
+
+def reset_calls() -> None:
+    for kind in CALLS:
+        CALLS[kind] = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class DistBackend:
+    """One data-parallel worker per process over a ``torch.distributed``
+    process group (``None``: the default group).  Every tensor is this
+    process's own, so there is no worker dim.  Each call is counted in
+    :data:`CALLS`."""
+
+    group: Any = None
+
+    @property
+    def workers(self) -> int:
+        return tdist.get_world_size(self.group)
+
+    @property
+    def lead(self) -> Tuple[int, ...]:
+        return ()
+
+    def check_device(self, device) -> None:
+        check_backend_device(tdist.get_backend(self.group), device)
+
+    def pmean(self, x: torch.Tensor) -> torch.Tensor:
+        """Mean over the group: a sum all-reduce on a copy (``x`` may be a
+        view of a caller's tensor), then a divide (gloo has no average)."""
+        buf = x.clone(memory_format=torch.contiguous_format)
+        tdist.all_reduce(buf, group=self.group)
+        CALLS["all_reduce"] += 1
+        return buf.div_(self.workers)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every worker's ``x``, stacked in rank order: ``(W,) + x.shape``."""
+        out = x.new_empty(self.workers * x.numel())
+        tdist.all_gather_into_tensor(out, x.reshape(-1), group=self.group)
+        CALLS["all_gather"] += 1
+        return out.view((self.workers,) + tuple(x.shape))
+
 
 @dataclasses.dataclass(frozen=True)
 class MeshCtx:
     """Names of the data axes the computation is mapped over.
 
     stats:   optional :class:`CollectiveStats` (excluded from eq).
-    backend: how the data-axis collectives run (:class:`SimBackend`);
-             required when ``data_axes`` is non-empty.
+    backend: how the data-axis collectives run (:class:`SimBackend` or
+             :class:`DistBackend`); given exactly when ``data_axes`` is
+             non-empty.
     """
 
     data_axes: Tuple[str, ...] = ()
     sync_mode: str = "allreduce"
     stats: Optional[CollectiveStats] = dataclasses.field(default=None, compare=False)
-    backend: Optional[SimBackend] = dataclasses.field(default=None, compare=False)
+    backend: Optional[Union[SimBackend, DistBackend]] = dataclasses.field(
+        default=None, compare=False)
 
     def __post_init__(self):
         if self.sync_mode != "allreduce":
             raise NotImplementedError(
                 f"sync_mode={self.sync_mode!r} is not ported yet (ROADMAP "
-                f"queue A, item 20)")
-        if self.data_axes and self.backend is None:
-            raise ValueError("a MeshCtx with data axes needs a backend")
+                f"queue A, item 13)")
+        if bool(self.data_axes) != (self.backend is not None):
+            raise ValueError("a MeshCtx has a backend exactly when it has "
+                             "data axes")
 
     @property
     def lead(self) -> Tuple[int, ...]:
         """Leading worker dims of per-worker tensors (``()`` when every
         tensor is one worker's own)."""
-        return self.backend.lead if self.data_axes else ()
+        return self.backend.lead if self.backend is not None else ()
 
     def per_worker(self, x: torch.Tensor) -> torch.Tensor:
         """A worker-identical tensor stacked once per worker (contiguous)."""
@@ -139,7 +213,7 @@ class MeshCtx:
 
     def data_size(self) -> int:
         """Number of data-parallel workers (1 outside any data axis)."""
-        return self.backend.workers if self.data_axes else 1
+        return self.backend.workers if self.backend is not None else 1
 
     def _record(self, n_elems: int, itemsize: float, kind: str = "reduce",
                 overhead: int = 0) -> None:
@@ -169,7 +243,10 @@ class MeshCtx:
         Under ``wire_dtype="int8"``/``"int4"`` each float slot is quantized
         and dequantized on its worker and the mean is taken over the float32
         result (a widened accumulator); the record carries the quantized
-        wire cost."""
+        wire cost.  That record models the reference's wire, not what
+        :class:`DistBackend` sends: its all-reduce moves the float32 result,
+        4x the recorded bytes of an int8 chunk and 8x those of an int4
+        chunk."""
         parts = list(parts)
         if not parts:
             return []
@@ -199,9 +276,10 @@ class MeshCtx:
         every worker receives every worker's payload.  Under the simulated
         backend the worker dim is already written out, so the gathered
         buffer is the ``(W, size)`` wire buffer itself.  A quantized chunk
-        ships its integer codes (nibble-packed for int4) with the scale
-        sidecar and is dequantized after the gather.  Recorded as
-        ``kind="gather"`` with ``fanout=data_size()``."""
+        ships its integer codes (nibble-packed for int4) and its scale
+        sidecar as two backend gathers, recorded as one collective, and is
+        dequantized after the gather.  Recorded as ``kind="gather"`` with
+        ``fanout=data_size()``."""
         parts = list(parts)
         if not parts:
             return []
@@ -214,21 +292,21 @@ class MeshCtx:
             self._record_chunk(chunk, "gather")
             if chunk.quant is not None:
                 payload, scales = matrixize.quant_pack_flat(chunk, parts, lead=nl)
-                if not self.data_axes:
-                    payload, scales = payload[None], scales[None]
-                out.update(matrixize.quant_unpack_flat(chunk, payload, scales,
-                                                       leading=w))
+                out.update(matrixize.quant_unpack_flat(
+                    chunk, self._gather(payload), self._gather(scales),
+                    leading=w))
                 continue
-            buf = matrixize.pack_flat(chunk, parts, lead=nl)
-            if not self.data_axes:
-                buf = buf[None]
+            buf = self._gather(matrixize.pack_flat(chunk, parts, lead=nl))
             out.update(matrixize.unpack_flat(chunk, buf, leading=w))
         return [out[i] for i in range(len(parts))]
 
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        return self.backend.all_gather(x) if self.data_axes else x[None]
+
     def gather_data_weight(self) -> Optional[torch.Tensor]:
         """The workers' contribution weights for a gather-pattern combine,
-        or ``None`` for uniform workers: the simulated backend carries no
-        weights yet (scenario weights wait for ROADMAP queue A, item 5)."""
+        or ``None`` for uniform workers: no backend carries weights yet
+        (scenario weights wait for ROADMAP queue A, item 6)."""
         return None
 
 

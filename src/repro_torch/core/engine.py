@@ -19,10 +19,10 @@ worker dims ``ctx.lead``: ``encode_leaf(path, g, q, spec, lead)`` gets a
 ``lead + shape`` delta and returns payloads with the same leading dims,
 and ``decode_leaf(enc, payload, lead)`` rebuilds ``lead + shape`` from
 payloads that carry ``lead`` (the worker's own payload, or the gathered
-``(W,)`` stack).
+``(W,)`` stack).  Under a ``torch.distributed`` context ``lead`` is ``()``.
 
-Not ported yet: ``StatePartition`` and ``PipelinedTransport`` (ROADMAP
-queue A, items 6 and 19), weighted combines (item 5).
+Not ported yet: ``StatePartition`` (ROADMAP queue A, item 14),
+``PipelinedTransport`` (item 12), weighted combines (item 6).
 """
 
 from __future__ import annotations
@@ -85,7 +85,7 @@ class Transport:
         if weights is not None:
             raise NotImplementedError(
                 "weighted gather combines are not ported yet (ROADMAP queue "
-                "A, item 5)")
+                "A, item 6)")
         return stacked.mean(dim=0)
 
 

@@ -49,10 +49,13 @@ def forward(params, x: torch.Tensor, cfg: ModelConfig, *, q_chunk: int = 512):
     q = common.apply_rope(q, positions[None, :], cfg.rope_theta)
     k = common.apply_rope(k, positions[None, :], cfg.rope_theta)
 
-    kv_idx = torch.clamp(torch.arange(hl, device=x.device),
-                         max=cfg.num_heads - 1) // group
-    k_h = k.index_select(2, kv_idx)            # (B, S, hl, hd)
-    v_h = v.index_select(2, kv_idx)
+    # each kv head serves `group` consecutive query heads.  An expand, not
+    # index_select: its backward is a sum over the group, where
+    # index_select's adds with atomics on the card, in an order that
+    # changes from run to run
+    kv_shape = (b, s, cfg.num_kv_heads, group, hd)
+    k_h = k[:, :, :, None].expand(kv_shape).reshape(b, s, hl, hd)
+    v_h = v[:, :, :, None].expand(kv_shape).reshape(b, s, hl, hd)
 
     qc = min(q_chunk, s)
     kpos = torch.arange(s, device=x.device)

@@ -19,6 +19,7 @@ from repro.models import model as jmodel
 from repro_torch import bridge, tree
 from repro_torch.configs import base, llama3_8b
 from repro_torch.data.synthetic import MarkovLM
+from repro_torch.launch import train
 from repro_torch.models import model
 
 
@@ -53,6 +54,24 @@ def test_loss_and_grads_match_reference(setup):
     for path, got, want in zip(paths, grads, jg_np):
         np.testing.assert_allclose(got.numpy(), want, atol=2e-6, rtol=1e-4,
                                    err_msg=str(path))
+
+
+@pytest.mark.cuda
+def test_cuda_grads_are_deterministic(setup):
+    """Two backward passes on the card give the same bits: the kv heads are
+    shared out by an expand, whose backward is a sum (index_select's
+    backward adds with atomics on the card, in an order that changes from
+    run to run)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _, cfg, _, params_np, batch = setup
+    params = bridge.to_torch(params_np, device="cuda")
+    tb = {k: torch.tensor(v, device="cuda") for k, v in batch.items()}
+    first, second = (train.local_grads(cfg, params, tb, q_chunk=16, device="cuda")
+                     for _ in range(2))
+    assert torch.equal(first[1], second[1])
+    for path, a, b in zip(tree.items(params), first[0], second[0]):
+        assert torch.equal(a, b), path[0]
 
 
 def test_q_chunking_does_not_change_the_loss(setup):

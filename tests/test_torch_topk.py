@@ -311,7 +311,7 @@ def test_unported_compressor_options_raise():
         compressors.make_compressor("sign_norm")
     with pytest.raises(NotImplementedError, match="item 15"):
         compressors.TopK(transport="per_leaf")
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match=r"item 6\b"):
         engine.Transport.combine_mean(torch.zeros(2, 3), torch.ones(2))
 
 
