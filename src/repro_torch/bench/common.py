@@ -8,7 +8,9 @@ device (:class:`~repro_torch.core.simmesh.SimMesh`): each worker's
 gradient on its own batch shard, Δ = g + e, the compressor's fused step,
 e ← Δ − recon, and the update ``m ← λm + agg``, ``x ← x − lr·(agg + m)`` at
 a constant learning rate without weight decay (the error-feedback step of
-:func:`repro_torch.core.error_feedback.apply_updates`).
+:func:`repro_torch.core.error_feedback.apply_updates`).  Shared-seed
+draws take the seed of each step from the base seed :data:`RUN_SEED` (the
+JAX package's ``fold_in(key(123), step)``).
 
     from repro_torch.bench.common import LMSpec, train_lm
     from repro_torch.core.compressors import make_compressor
@@ -42,6 +44,7 @@ from repro_torch.models import model
 Q_CHUNK = 32
 EVAL_BATCH = 32
 EVAL_STEP0 = 10_000   # eval batches are stream steps the training never reaches
+RUN_SEED = 123        # base seed of the per-step shared-seed draws
 
 
 @dataclasses.dataclass
@@ -175,15 +178,15 @@ def train_lm(compressor: Compressor, spec: LMSpec = LMSpec(),
                                 q_chunk=Q_CHUNK, device=dev)
         params, state, _ = error_feedback.apply_updates(
             compressor, params, grads, state, specs, lr=spec.lr,
-            momentum=spec.momentum, ctx=ctx)
+            momentum=spec.momentum, ctx=ctx, seed=RUN_SEED)
         sync()
         step_ms.append((time.perf_counter() - ts) * 1e3)
         if bits is None:
             zeros = tree.map(torch.zeros_like, params)
             probe_state = compressor.init(
                 zeros, specs, torch.Generator(dev).manual_seed(spec.seed))
-            bits = compressor.step(zeros, probe_state, specs,
-                                   ctx=SINGLE).bits_per_worker
+            bits = compressor.step(zeros, probe_state, specs, ctx=SINGLE,
+                                   seed=RUN_SEED).bits_per_worker
     train_time = time.time() - t0
 
     with torch.no_grad():

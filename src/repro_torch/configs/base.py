@@ -2,7 +2,7 @@
 ``repro.configs.base``, the fields the dense training path reads).
 
 Only the dense attention + SwiGLU architecture is ported (``llama3_8b``);
-the other registered architectures wait for ROADMAP queue A, item 22.
+the other registered architectures wait for ROADMAP queue A, item 15.
 """
 
 from __future__ import annotations
@@ -76,6 +76,6 @@ def get_config(arch: str, reduced: bool = False) -> ModelConfig:
     if arch not in ARCH_IDS:
         raise NotImplementedError(
             f"architecture {arch!r} is not ported yet (ROADMAP queue A, "
-            f"item 22); ported: {ARCH_IDS}")
+            f"item 15); ported: {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.reduced_config() if reduced else mod.config()

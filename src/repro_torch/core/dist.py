@@ -108,6 +108,9 @@ class SimBackend:
     def pmean(self, x: torch.Tensor) -> torch.Tensor:
         return x.mean(dim=0)
 
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        return x.sum(dim=0)
+
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """The stacked ``(W, ...)`` buffer already holds every worker's
         payload."""
@@ -161,10 +164,14 @@ class DistBackend:
     def pmean(self, x: torch.Tensor) -> torch.Tensor:
         """Mean over the group: a sum all-reduce on a copy (``x`` may be a
         view of a caller's tensor), then a divide (gloo has no average)."""
+        return self.psum(x).div_(self.workers)
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over the group: an ``all_reduce`` on a copy."""
         buf = x.clone(memory_format=torch.contiguous_format)
         tdist.all_reduce(buf, group=self.group)
         CALLS["all_reduce"] += 1
-        return buf.div_(self.workers)
+        return buf
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every worker's ``x``, stacked in rank order: ``(W,) + x.shape``."""
@@ -231,6 +238,12 @@ class MeshCtx:
         """Mean over the data axes of one per-worker tensor."""
         self._record(math.prod(x.shape[len(self.lead):]), x.dtype.itemsize)
         return self.backend.pmean(x) if self.data_axes else x
+
+    def psum_data(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over the data axes of one per-worker tensor (recorded as a
+        reduce, as :meth:`pmean_data` is)."""
+        self._record(math.prod(x.shape[len(self.lead):]), x.dtype.itemsize)
+        return self.backend.psum(x) if self.data_axes else x
 
     def pmean_flat(self, parts: Sequence[torch.Tensor], *,
                    wire_dtype: str = "auto",

@@ -6,13 +6,16 @@
   decodes.
 * :class:`MatrixPayloads` — a tree's compressed leaves as zero-padded
   ``(B, n, m)`` bucket slabs, and the scatter of results back to the tree.
-* :func:`run_step` — the generic step of single-round schemes (Top-K).
-  A compressor declares per leaf what travels (``encode_leaf`` →
-  :class:`Encoded`) and how to rebuild a leaf from a payload
-  (``decode_leaf``); ``wire_mode`` says how it travels: ``"reduce"``
-  all-reduces the fused payloads and decodes once, ``"gather"`` all-gathers
-  them, decodes every worker's payload and averages the W decodes.
-  Uncompressed leaves ride one fused all-reduce.
+* :func:`run_step` — the generic step of single-round schemes (the whole
+  zoo but PowerSGD).  A compressor declares per leaf what travels
+  (``encode_leaf`` → :class:`Encoded`) and how to rebuild a leaf from a
+  payload (``decode_leaf``); ``wire_mode`` says how it travels:
+  ``"reduce"`` all-reduces the fused payloads and decodes once,
+  ``"gather"`` all-gathers them, decodes every worker's payload and
+  averages the W decodes.  Uncompressed leaves ride one fused all-reduce.
+* :func:`keystr`, :func:`step_seed`, :func:`leaf_seed` — the seeds of the
+  shared-seed draws: a leaf's draws depend only on the step's seed and the
+  leaf's path, so every worker draws the same values.
 
 Under a simulated data-parallel context the per-worker tensors carry the
 worker dims ``ctx.lead``: ``encode_leaf(path, g, q, spec, lead)`` gets a
@@ -22,20 +25,54 @@ payloads that carry ``lead`` (the worker's own payload, or the gathered
 ``(W,)`` stack).  Under a ``torch.distributed`` context ``lead`` is ``()``.
 
 Not ported yet: ``StatePartition`` (ROADMAP queue A, item 14),
-``PipelinedTransport`` (item 12), weighted combines (item 6).
+``PipelinedTransport`` (ROADMAP queue A, item 12), weighted combines
+(ROADMAP queue A, item 6).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch import tree
 from repro_torch.core import matrixize
 from repro_torch.core.dist import SINGLE, MeshCtx
+
+
+def keystr(path) -> str:
+    """A leaf's path written as ``jax.tree_util.keystr`` writes a path of
+    dict keys: ``('blocks', 'wq')`` → ``"['blocks']['wq']"``."""
+    return "".join(f"[{k!r}]" for k in path)
+
+
+def _seed63(text: str) -> int:
+    return int.from_bytes(hashlib.sha256(text.encode()).digest()[:8],
+                          "little") >> 1
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The seed of step ``step`` of a run with base seed ``seed`` (the twin
+    of the JAX package's ``fold_in(key, step)``): every worker and every
+    rank derives the same value."""
+    return _seed63(f"step:{int(seed)}:{int(step)}")
+
+
+def leaf_seed(seed: int, path) -> int:
+    """A 63-bit seed for one leaf's draws (the twin of ``leaf_key``): a
+    function of the step's ``seed`` and the leaf's path only, not of the
+    worker, the rank, the leaf order or the device."""
+    return _seed63(f"leaf:{int(seed)}:{keystr(path)}")
+
+
+def leaf_generator(seed: int, path) -> torch.Generator:
+    """A fresh CPU generator seeded with :func:`leaf_seed`.  Draws are made
+    on the CPU, so a leaf draws the same values whatever device it lives
+    on (a CUDA generator with the same seed gives another stream)."""
+    return torch.Generator().manual_seed(leaf_seed(seed, path))
 
 
 @dataclasses.dataclass
@@ -132,16 +169,16 @@ class MatrixPayloads:
     @classmethod
     def build(cls, deltas, state, specs, *, dtype=torch.float32,
               tolerance: float = 0.25, lead: Tuple[int, ...] = (),
-              resample: Optional[torch.Generator] = None) -> "MatrixPayloads":
-        """``resample`` replaces every warm-start factor with a fresh
-        standard-normal draw from that generator (cold start), in leaf
-        order."""
+              resample: Optional[Callable] = None) -> "MatrixPayloads":
+        """``resample(path, shape)`` replaces every warm-start factor with
+        the fresh standard-normal draw it returns for that leaf (cold
+        start)."""
         leaves = collect_leaves(deltas, state, specs)
         nl = len(lead)
         mats, qs, plan_shapes, lshapes, unc_ids = [], [], [], [], []
         ranks = {}
         floats = 0
-        for i, (_, g, q, spec) in enumerate(leaves):
+        for i, (path, g, q, spec) in enumerate(leaves):
             shape = tuple(g.shape[nl:])
             ms = matrixize.matrix_shape(shape, spec) if q is not None else None
             if ms is None:
@@ -158,8 +195,7 @@ class MatrixPayloads:
             ranks[i] = r
             mats.append(g.to(dtype).reshape(tuple(lead) + (count, n, m)))
             if resample is not None:
-                q = torch.randn(q.shape, generator=resample, dtype=dtype,
-                                device=q.device)
+                q = resample(path, tuple(q.shape)).to(q.device)
             qs.append(q.to(dtype).reshape(count, m, r))
             plan_shapes.append((count, n, m))
             lshapes.append((batch_shape, n, m))
@@ -216,18 +252,20 @@ class MatrixPayloads:
         return scatter_tree(self.deltas, results)
 
 
-def run_step(comp, deltas, state, specs, ctx: MeshCtx = SINGLE, *,
-             wire_dtype: str = "auto",
+def run_step(comp, deltas, state, specs, ctx: MeshCtx = SINGLE,
+             seed: Optional[int] = None, *, wire_dtype: str = "auto",
              max_chunk_bytes: Optional[int] = None) -> CompressOut:
     """One compress+aggregate step of a stateless single-round scheme
     through the fused transport (stateful PowerSGD runs its own phases).
 
-    Encodes every leaf, fuses all payloads into one collective per wire
-    chunk (reduce or gather by ``comp.wire_mode``), decodes and scatters
-    back to the tree.  Leaves the scheme leaves uncompressed
-    (``encode_leaf`` → ``None``) ride a fused all-reduce: for a gather
-    scheme that is one reduce beside the payload gathers.  ``agg`` is held
-    once; ``recon`` (the worker's own decode) carries ``ctx.lead``.
+    Encodes every leaf (``seed`` is the step's seed for shared-seed
+    draws), fuses all payloads into one collective per wire chunk (reduce
+    or gather by ``comp.wire_mode``), decodes and scatters back to the
+    tree.  Leaves the scheme leaves uncompressed (``encode_leaf`` →
+    ``None``) ride a fused all-reduce: for a gather scheme that is one
+    reduce beside the payload gathers.  ``agg`` is held once; ``recon`` is
+    the worker's own decode, with ``ctx.lead``, or the aggregate itself
+    where ``comp.recon_is_agg``.
     """
     transport = Transport(ctx=ctx, wire_dtype=wire_dtype,
                           max_chunk_bytes=max_chunk_bytes)
@@ -236,7 +274,7 @@ def run_step(comp, deltas, state, specs, ctx: MeshCtx = SINGLE, *,
 
     encs, bits = [], 0
     for path, g, q, spec in leaves:
-        enc = comp.encode_leaf(path, g, q, spec, lead)
+        enc = comp.encode_leaf(path, g, q, spec, lead, seed)
         encs.append(enc)
         bits += (matrixize.uncompressed_floats(tuple(g.shape[len(lead):])) * 32
                  if enc is None else enc.bits)
@@ -247,7 +285,9 @@ def run_step(comp, deltas, state, specs, ctx: MeshCtx = SINGLE, *,
         slices[i] = (len(payload_parts), len(payload_parts) + len(encs[i].payload))
         payload_parts.extend(encs[i].payload)
 
-    def local_recon(i):
+    def local_recon(i, agg):
+        if comp.recon_is_agg:
+            return agg
         return comp.decode_leaf(encs[i], encs[i].payload, lead)
 
     results: dict = {}
@@ -257,7 +297,7 @@ def run_step(comp, deltas, state, specs, ctx: MeshCtx = SINGLE, *,
         for i in enc_ids:
             lo, hi = slices[i]
             agg = comp.decode_leaf(encs[i], tuple(reduced[lo:hi]), ())
-            results[i] = (agg, local_recon(i), None)
+            results[i] = (agg, local_recon(i, agg), None)
         for j, i in enumerate(unc_ids):
             results[i] = (reduced[len(payload_parts) + j], leaves[i][1], None)
     else:
@@ -272,7 +312,42 @@ def run_step(comp, deltas, state, specs, ctx: MeshCtx = SINGLE, *,
             decoded = comp.decode_leaf(encs[i], tuple(gathered[lo:hi]), w)
             agg = transport.combine_mean(decoded, weights)
             del decoded   # free the W decodes before the local one is built
-            results[i] = (agg, local_recon(i), None)
+            results[i] = (agg, local_recon(i, agg), None)
 
     agg, recon, _ = scatter_tree(deltas, [results[i] for i in range(len(leaves))])
+    return CompressOut(agg=agg, recon=recon, state=None, bits_per_worker=bits)
+
+
+def run_step_per_leaf(comp, deltas, state, specs, ctx: MeshCtx = SINGLE,
+                      seed: Optional[int] = None) -> CompressOut:
+    """The per-leaf reference path of a single-round scheme
+    (``transport="per_leaf"``): one collective per payload array per leaf,
+    no fusion and no wire cast.
+
+    A reduce scheme mean-reduces each payload array and decodes the mean
+    (a ``recon_is_agg`` scheme uses that as its reconstruction too).  A
+    gather scheme mean-reduces the dense per-worker reconstruction: the
+    numbers of the gather path's decode-then-average, on a dense all-reduce
+    (the fused engine's all-gather is the honest wire pattern).
+    Uncompressed leaves are mean-reduced as they are.  The fused
+    :func:`run_step` matches this path bit for bit on a simulated mesh."""
+    lead = ctx.lead
+    bits, results = 0, []
+    for path, g, q, spec in collect_leaves(deltas, state, specs):
+        enc = comp.encode_leaf(path, g, q, spec, lead, seed)
+        if enc is None:
+            bits += matrixize.uncompressed_floats(tuple(g.shape[len(lead):])) * 32
+            results.append((ctx.pmean_data(g), g, None))
+            continue
+        bits += enc.bits
+        if comp.wire_mode == "reduce":
+            agg = comp.decode_leaf(
+                enc, tuple(ctx.pmean_data(a) for a in enc.payload), ())
+            recon = (agg if comp.recon_is_agg
+                     else comp.decode_leaf(enc, enc.payload, lead))
+        else:
+            recon = comp.decode_leaf(enc, enc.payload, lead)
+            agg = ctx.pmean_data(recon)
+        results.append((agg, recon, None))
+    agg, recon, _ = scatter_tree(deltas, results)
     return CompressOut(agg=agg, recon=recon, state=None, bits_per_worker=bits)

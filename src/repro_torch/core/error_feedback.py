@@ -18,7 +18,7 @@ Weight decay follows the paper (§5): coupled, added to the gradient before
 compression, and not applied to uncompressed (norm) parameters.
 
 Not ported yet: ``start_compress_step`` > 0 (dense warmup, ROADMAP queue A,
-item 8) and ``staleness="one_step"`` (item 19).
+item 7) and ``staleness="one_step"`` (item 12).
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch import tree
+from repro_torch.core import engine
 from repro_torch.core.compressors import Compressor
 from repro_torch.core.dist import SINGLE, MeshCtx
 from repro_torch.kernels import ops
@@ -60,9 +61,13 @@ def init_state(compressor: Compressor, params, specs, *, lead=(),
 def apply_updates(compressor: Compressor, params, grads, state: EFState,
                   specs, *, lr, momentum: float = 0.9,
                   weight_decay: float = 0.0, ctx: MeshCtx = SINGLE,
-                  generator: Optional[torch.Generator] = None,
+                  seed: Optional[int] = None,
                   start_compress_step: int = 0, staleness: str = "none"):
     """One EF-SGD step.  Returns ``(params, new_state, aux)``.
+
+    ``seed`` is the run's base seed for shared-seed draws: the compressor
+    gets ``engine.step_seed(seed, state.step)``, the twin of the JAX
+    package's ``fold_in(key, state.step)``.
 
     ``grads`` are the per-worker gradients (``ctx.lead`` worker dims); they
     are consumed: their storage becomes ``new_state.error``.  ``params`` and
@@ -71,11 +76,11 @@ def apply_updates(compressor: Compressor, params, grads, state: EFState,
     if staleness != "none":
         raise NotImplementedError(
             f"staleness={staleness!r} is not ported yet (ROADMAP queue A, "
-            f"item 19)")
+            f"item 12)")
     if start_compress_step:
         raise NotImplementedError(
             "start_compress_step > 0 (dense warmup) is not ported yet "
-            "(ROADMAP queue A, item 8)")
+            "(ROADMAP queue A, item 7)")
     with torch.no_grad():
         for g, p, spec in zip(tree.leaves(grads), tree.leaves(params),
                               tree.leaves(specs)):
@@ -83,8 +88,9 @@ def apply_updates(compressor: Compressor, params, grads, state: EFState,
                 g.add_(weight_decay * p)
         # Δ_w = g_w + e_w, in the gradient buffers
         deltas = tree.map(lambda g, e: g.add_(e), grads, state.error)
-        out = compressor.step(deltas, state.comp, specs, ctx=ctx,
-                              generator=generator)
+        out = compressor.step(
+            deltas, state.comp, specs, ctx=ctx,
+            seed=None if seed is None else engine.step_seed(seed, state.step))
         params, new_momentum = ops.ef_apply_tree(
             params, out.agg, state.momentum, lr=lr, momentum=momentum)
         # e_w = Δ_w − recon, in the same buffers.  Last: without data axes

@@ -264,7 +264,7 @@ def check_wire_dtype(wire_dtype: str) -> None:
     if wire_dtype not in PORTED_WIRE_DTYPES:
         raise NotImplementedError(
             f"wire_dtype={wire_dtype!r} is not ported yet (ROADMAP queue A, "
-            f"item 18: cast wire formats)")
+            f"item 11: cast wire formats)")
 
 
 def plan_flat(parts, wire_dtype: str = "auto",

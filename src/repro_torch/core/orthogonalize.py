@@ -4,7 +4,7 @@
 ``gram_schmidt`` works on ``(..., n, r)`` and is batched over leading dims,
 so the ``(B, n, r)`` slabs of the bucketed engine go through in one call.
 Zero-padded rows are exact no-ops.  ``cholesky_qr`` and ``gs_cholqr`` are
-not ported yet (ROADMAP queue A, item 3).
+not ported yet (ROADMAP queue A, item 8).
 """
 
 from __future__ import annotations
@@ -52,7 +52,7 @@ def get_orthogonalizer(name: str):
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"orthogonalizer {name!r} is not ported yet (ROADMAP queue A, "
-            f"item 3)")
+            f"item 8)")
     try:
         return ORTHOGONALIZERS[name]
     except KeyError:

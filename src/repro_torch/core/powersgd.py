@@ -13,18 +13,21 @@ One warm-started subspace-iteration step per optimization step:
 :class:`~repro_torch.core.engine.MatrixPayloads` stacks the tree's matrices
 into shape-bucket slabs; the two products run as one kernel launch per
 bucket, covering every simulated worker; uncompressed vector leaves ride the
-first fused reduce.  Zero padding is exact.  The products go through
+first fused reduce.  Zero padding is exact.  ``bucketing="off"`` is the
+per-leaf reference path: the same math leaf by leaf, one kernel launch of
+each product and two collectives per matrix leaf and power iteration, one
+collective per vector leaf.  The products go through
 :mod:`repro_torch.kernels.ops`: the CUDA kernels for CUDA tensors, the plain
 version for CPU tensors.
 
-Not ported yet: the per-leaf path (``bucketing="off"``, ROADMAP queue A,
-item 7), rank schedules and residual tracking (item 14).
+Not ported yet: rank schedules and residual tracking (ROADMAP queue A,
+item 8).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -43,22 +46,18 @@ class PowerSGDConfig:
     num_iters: int = 1                     # >1 ⇒ Appendix G.7 best-approximation
     error_mode: str = "global"             # "global" | "local" (Alg. 2 literal)
     dtype: torch.dtype = torch.float32
-    bucketing: str = "auto"                # "auto"/"on": the bucketed engine
+    bucketing: str = "auto"                # "auto"/"on": bucketed, "off": per leaf
     bucket_pad_tolerance: float = 0.25     # max relative padding waste per bucket
     wire_dtype: str = "auto"               # fused-collective wire policy
     max_chunk_bytes: Optional[int] = None  # cap per fused wire buffer
     track_residual: bool = False
 
     def __post_init__(self):
-        if self.bucketing == "off":
-            raise NotImplementedError(
-                "bucketing='off' (the per-leaf path) is not ported yet "
-                "(ROADMAP queue A, item 7)")
-        if self.bucketing not in ("auto", "on"):
+        if self.bucketing not in ("auto", "on", "off"):
             raise ValueError(f"unknown bucketing mode {self.bucketing!r}")
         if self.track_residual:
             raise NotImplementedError(
-                "track_residual is not ported yet (ROADMAP queue A, item 14)")
+                "track_residual is not ported yet (ROADMAP queue A, item 8)")
         if self.error_mode not in ("global", "local"):
             raise ValueError(f"unknown error_mode {self.error_mode!r}")
         if self.num_iters < 1:
@@ -86,22 +85,27 @@ def init_state(cfg: PowerSGDConfig, shapes, specs,
 
 def compress_aggregate(cfg: PowerSGDConfig, deltas, state, specs,
                        ctx: MeshCtx = SINGLE,
-                       generator: Optional[torch.Generator] = None
-                       ) -> engine.CompressOut:
-    """Batched power iteration over shape buckets, 2 collectives per iter.
+                       draw: Optional[Callable] = None) -> engine.CompressOut:
+    """One PowerSGD step: bucketed (2 collectives per power iteration) or,
+    under ``bucketing="off"``, per leaf.
 
     ``deltas`` carry ``ctx.lead`` worker dims; ``state`` (the Q factors) is
-    worker-identical and held once.  ``generator`` is needed only without
-    warm start (fresh factors every step).  Returns ``agg`` held once and,
-    under ``error_mode="local"``, a per-worker ``recon``.
+    worker-identical and held once.  ``draw(path, shape)`` → a fresh
+    standard-normal factor for that leaf, needed only without warm start
+    (both paths draw the same factor for a leaf).  Returns ``agg`` held
+    once and, under ``error_mode="local"``, a per-worker ``recon``.
     """
-    if not cfg.warm_start and generator is None:
-        raise ValueError("warm_start=False draws fresh factors: pass a generator")
+    if not cfg.warm_start and draw is None:
+        raise ValueError("warm_start=False draws fresh factors: pass a draw "
+                         "(the compressor's step takes a seed)")
+    if cfg.bucketing == "off":
+        return _compress_aggregate_per_leaf(cfg, deltas, state, specs, ctx,
+                                            draw)
     orth = get_orthogonalizer(cfg.orthogonalizer)
     payloads = engine.MatrixPayloads.build(
         deltas, state, specs, dtype=cfg.dtype,
         tolerance=cfg.bucket_pad_tolerance, lead=ctx.lead,
-        resample=None if cfg.warm_start else generator)
+        resample=None if cfg.warm_start else draw)
     transport = engine.Transport(ctx=ctx, wire_dtype=cfg.wire_dtype,
                                  max_chunk_bytes=cfg.max_chunk_bytes)
     m_bufs, q_bufs = payloads.m_bufs, payloads.q_bufs
@@ -133,6 +137,44 @@ def compress_aggregate(cfg: PowerSGDConfig, deltas, state, specs,
                                              unc_agg, recon_lead=recon_lead)
     return engine.CompressOut(agg=agg, recon=recon, state=new_state,
                               bits_per_worker=payloads.bits)
+
+
+def _compress_aggregate_per_leaf(cfg: PowerSGDConfig, deltas, state, specs,
+                                 ctx: MeshCtx, draw) -> engine.CompressOut:
+    """The per-leaf reference path: each matrix leaf's ``lead + batch +
+    (n, m)`` matrices go through one project and one backproject launch and
+    two ``pmean_data`` calls per power iteration; each vector leaf through
+    one ``pmean_data`` of its own."""
+    orth = get_orthogonalizer(cfg.orthogonalizer)
+    lead = ctx.lead
+    floats, results = 0, []
+    for path, g, q, spec in engine.collect_leaves(deltas, state, specs):
+        shape = tuple(g.shape[len(lead):])
+        if q is None:
+            floats += matrixize.uncompressed_floats(shape)
+            results.append((ctx.pmean_data(g), g, None))
+            continue
+        batch_shape, n, m = matrixize.matrix_shape(shape, spec)
+        mat = g.to(cfg.dtype).reshape(tuple(lead) + batch_shape + (n, m))
+        if not cfg.warm_start:
+            q = draw(path, tuple(q.shape)).to(q.device)
+        q = q.to(cfg.dtype)
+        for _ in range(cfg.num_iters):
+            p_hat = orth(ctx.pmean_data(
+                ops.lowrank_project(mat, ctx.per_worker(q))))
+            q_local = ops.lowrank_backproject(mat, ctx.per_worker(p_hat))
+            q = ctx.pmean_data(q_local)
+        agg = ref.decompress(p_hat, q)
+        if cfg.error_mode == "local":
+            recon = ref.decompress(ctx.per_worker(p_hat), q_local)
+            recon = recon.reshape(tuple(lead) + shape)
+        else:
+            recon = agg.reshape(shape)
+        floats += matrixize.compressed_floats(shape, spec, q.shape[-1])
+        results.append((agg.reshape(shape).to(g.dtype), recon.to(g.dtype), q))
+    agg, recon, new_state = engine.scatter_tree(deltas, results)
+    return engine.CompressOut(agg=agg, recon=recon, state=new_state,
+                              bits_per_worker=floats * 32)
 
 
 def compressed_floats_total(shapes, specs, rank: int) -> int:

@@ -11,7 +11,7 @@
   worker dim.
 
 The command-line entry point and checkpointing wait for ROADMAP queue A,
-item 10; the model axis (tensor parallelism) for item 14.
+item 10; the model axis (tensor parallelism) for ROADMAP queue A, item 14.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ class TrainHyper:
     rank: int = 2
     q_chunk: int = 512
     orthogonalizer: str = "gram_schmidt"
+    bucketing: str = "auto"         # "auto"/"on" = bucketed engine, "off" = per-leaf
     wire_dtype: str = "auto"
 
 
@@ -89,6 +90,7 @@ def worker_grads(cfg: ModelConfig, params, batch, workers: int, *,
 def _default_compressor(hyper: TrainHyper) -> Compressor:
     return PowerSGDCompressor(rank=hyper.rank,
                               orthogonalizer=hyper.orthogonalizer,
+                              bucketing=hyper.bucketing,
                               wire_dtype=hyper.wire_dtype)
 
 
@@ -101,13 +103,13 @@ def _make_step(cfg: ModelConfig, hyper: TrainHyper,
         compressor = _default_compressor(hyper)
     mspec_tree = model.mspecs(cfg)
 
-    def step_fn(params, ef_state: EFState, batch, generator=None):
+    def step_fn(params, ef_state: EFState, batch, seed=None):
         grads, loss = grads_fn(params, batch)
         lr = _schedule(hyper, ef_state.step)
         params, ef_state, aux = error_feedback.apply_updates(
             compressor, params, grads, ef_state, mspec_tree, lr=lr,
             momentum=hyper.momentum, weight_decay=hyper.weight_decay, ctx=ctx,
-            generator=generator)
+            seed=seed)
         metrics = {"lm_loss": loss, "lr": lr,
                    "bits_per_worker": aux["bits_per_worker"]}
         return params, ef_state, metrics
@@ -134,9 +136,11 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper,
     and shardings without values) waits for the dry-run, ROADMAP queue A,
     item 16.
 
-    ``step_fn(params, ef_state, batch, generator=None)`` →
+    ``step_fn(params, ef_state, batch, seed=None)`` →
     ``(params, ef_state, metrics)``.  ``batch`` is this worker's own shard
-    ``(b, S)``.  Parameters, momentum and the compressor state stay
+    ``(b, S)``; ``seed`` is the run's base seed for shared-seed draws (the
+    same on every rank; the step index is folded in, see
+    :func:`repro_torch.core.error_feedback.apply_updates`).  Parameters, momentum and the compressor state stay
     identical on every worker; the error buffers are this worker's own, with
     no worker dim.  Parameters and momentum are updated in place.
     ``metrics["lm_loss"]`` is the loss averaged over the workers (an
@@ -171,9 +175,10 @@ def make_sim_train_step(cfg: ModelConfig, sim, hyper: TrainHyper,
     :func:`repro_torch.core.compressors.make_compressor` (e.g. ``"top_k"``
     with ``wire_dtype="int4"``) drops in.
 
-    ``step_fn(params, ef_state, batch, generator=None)`` →
+    ``step_fn(params, ef_state, batch, seed=None)`` →
     ``(params, ef_state, metrics)``.  ``batch`` holds per-worker shards
-    ``(W, b, S)`` (:meth:`SimMesh.shard`).  Parameters, momentum and the
+    ``(W, b, S)`` (:meth:`SimMesh.shard`); ``seed`` as in
+    :func:`make_train_step`.  Parameters, momentum and the
     compressor state are worker-identical and held once; the error
     buffers carry the worker dim.  Parameters and momentum are updated in
     place.  ``metrics["lm_loss"]`` is the worker-mean loss.

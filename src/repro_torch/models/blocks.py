@@ -19,7 +19,7 @@ def _check_slots(cfg: ModelConfig) -> None:
     for s in cfg.slots:
         if (s.mixer, s.ffn) != ("attn", "dense"):
             raise NotImplementedError(
-                f"layer slot {s} is not ported yet (ROADMAP queue A, item 22)")
+                f"layer slot {s} is not ported yet (ROADMAP queue A, item 15)")
 
 
 def _slot_init(cfg: ModelConfig, generator, device, dtype):

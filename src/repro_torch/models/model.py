@@ -1,7 +1,7 @@
 """Language model: embedding → block stack → final norm → head, and the
 training loss (port of ``init``, ``mspecs`` and ``loss_fn`` of
 ``repro.models.model``; decode and prefill wait for ROADMAP queue A,
-item 12)."""
+item 15)."""
 
 from __future__ import annotations
 

@@ -154,10 +154,36 @@ def test_identity_matches_reference(workers):
 
 
 def test_identity_per_leaf_transport_raises():
+    """``transport="per_leaf"`` (ROADMAP queue A, item 4) is ported: one
+    reduce per leaf, as the reference's per-leaf path; the aggregate equals
+    the fused one bit for bit, the reconstruction is the worker's own Δ.
+    An unknown transport raises, as in the reference."""
+    workers = 4
+    rng = np.random.default_rng(workers)
+    deltas = {k: rng.standard_normal((workers,) + s).astype(np.float32)
+              for k, s in SHAPES.items()}
+    jstats, stats = jdist.CollectiveStats(), dist.CollectiveStats()
+    jc = jcomp.IdentityCompressor(transport="per_leaf")
+    sim = JSimMesh(workers)
+    agg_r, recon_r, bits_r = sim.run(lambda g: (lambda o: (
+        o.agg, o.recon, o.bits_per_worker))(jc.step(
+            g, None, _specs(jmz), ctx=sim.ctx(stats=jstats))))(
+        jax.tree_util.tree_map(jnp.asarray, deltas))
     comp = compressors.IdentityCompressor(transport="per_leaf")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        comp.step(bridge.to_torch({"bias": np.zeros((1, 7), np.float32)}),
-                  None, {"bias": mz.NONE}, SimMesh(1).ctx())
+    out = comp.step(bridge.to_torch(deltas), None, _specs(mz),
+                    SimMesh(workers).ctx(stats=stats))
+    fused = compressors.IdentityCompressor().step(
+        bridge.to_torch(deltas), None, _specs(mz), SimMesh(workers).ctx())
+    for k in SHAPES:
+        np.testing.assert_allclose(out.agg[k].numpy(), np.asarray(agg_r[k][0]),
+                                   atol=1e-6, rtol=1e-6, err_msg=k)
+        np.testing.assert_array_equal(out.recon[k].numpy(), np.asarray(recon_r[k]))
+        assert torch.equal(out.agg[k], fused.agg[k]), k
+    assert out.bits_per_worker == int(bits_r[0])
+    assert _records(stats) == _records(jstats)
+    assert stats.kinds == ["reduce"] * len(SHAPES)
+    with pytest.raises(ValueError, match="transport"):
+        compressors.IdentityCompressor(transport="ring")
 
 
 # ---------------------------------------------------------------------------

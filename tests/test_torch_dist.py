@@ -23,6 +23,13 @@ one worker each, started once for the whole file.
 * (d) The entry point's device rules: the CUDA default raises where there
   is no card, and a process group whose backend does not carry the
   device's tensors raises.
+* (e) Two more schemes of the zoo, 2 steps each with one base seed:
+  ``random_k`` (shared-seed draws on a reduce) and ``sign_norm`` (a
+  gather of int8 signs and float norms).  Every rank draws the same
+  indices for every leaf and step, and the same as the parent process; the
+  replicas stay bit-identical; each rank matches the port's
+  ``make_sim_train_step`` on ``SimMesh(4)`` (losses rtol 1e-5, parameters
+  atol 2e-6: gloo sums the reduces in another order than ``mean``).
 
 The ranks import this module, so the JAX package is imported only inside
 the parent's fixture: the ranks stay torch-only.  ``python
@@ -46,7 +53,7 @@ import torch.multiprocessing as mp
 
 from repro_torch import bridge, tree
 from repro_torch.configs import llama3_8b
-from repro_torch.core import compressors, dist, matrixize as mz
+from repro_torch.core import compressors, dist, engine, matrixize as mz
 from repro_torch.core.error_feedback import EFState
 from repro_torch.core.simmesh import SimMesh
 from repro_torch.data.synthetic import MarkovLM
@@ -56,6 +63,8 @@ pytestmark = pytest.mark.timeout(180)
 
 W, BATCH, SEQ = 4, 8, 32
 STEPS = {"powersgd": 5, "top_k": 3}
+ZOO_STEPS = {"random_k": 2, "sign_norm": 2}
+ZOO_SEED = 7          # the base seed every rank passes to the step
 WIRES = ("auto", "float32", "int8", "int4")
 RENDEZVOUS_S = 60     # init_process_group and every collective
 RESULTS_S = 140       # from the spawn to the last rank's result
@@ -183,6 +192,40 @@ def _rank_steps(rank, path, start, batches):
     return out
 
 
+def _draws_digest(params, steps):
+    """One hash over ``random_k``'s index draws for every leaf and step."""
+    comp = compressors.make_compressor("random_k")
+    h = hashlib.sha256()
+    for s in range(steps):
+        for path, x in tree.items(params):
+            n = x.numel()
+            h.update(comp.draw("choice", path, engine.step_seed(ZOO_SEED, s),
+                               n=n, b=min(n, 64)).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _rank_zoo(rank, name, start, batches):
+    """(e): a stateless scheme of the zoo on this rank's shards."""
+    step, _ = train.make_train_step(llama3_8b.reduced_config(), _hyper(),
+                                    compressors.make_compressor(name, rank=2),
+                                    device="cpu")
+    params = bridge.to_torch(start)
+    ef = EFState(error=tree.map(torch.zeros_like, params),
+                 momentum=tree.map(torch.zeros_like, params), comp=None)
+    losses = []
+    for b in batches:
+        shard = {k: torch.tensor(v.reshape((W, -1) + v.shape[1:])[rank])
+                 for k, v in b.items()}
+        params, ef, m = step(params, ef, shard, seed=ZOO_SEED)
+        losses.append(m["lm_loss"].item())
+    out = {"losses": losses, "draws": _draws_digest(params, len(batches)),
+           "digests": {k: _digest(t) for k, t in (
+               ("params", params), ("momentum", ef.momentum))}}
+    if rank == 0:
+        out["params"] = bridge.to_numpy(params)
+    return out
+
+
 def _rank_device_rules():
     """(d): a gloo group refuses CUDA tensors."""
     try:
@@ -203,6 +246,9 @@ def _rank_main(rank, rdzv, inputs, results):
         for path in STEPS:
             out[path] = _rank_steps(rank, path, inputs["start"][path],
                                     inputs["batches"][path])
+        for name in ZOO_STEPS:
+            out[name] = _rank_zoo(rank, name, inputs["start"]["powersgd"]["params"],
+                                  inputs["batches"][name])
         results.put((rank, out))
     except BaseException:
         results.put((rank, traceback.format_exc()))
@@ -260,7 +306,7 @@ def _reference_steps(sim, step, jstats, params, ef, batches):
 def _run_ranks():
     """Start the W ranks, run the reference meanwhile, collect both."""
     vocab = llama3_8b.reduced_config().vocab_size
-    batches = {p: _batches(vocab, n) for p, n in STEPS.items()}
+    batches = {p: _batches(vocab, n) for p, n in {**STEPS, **ZOO_STEPS}.items()}
     refs = {p: _reference(p) for p in STEPS}
     starts = {p: {"params": _np_tree(r[3], 0), "comp": _np_tree(r[4].comp, 0)}
               for p, r in refs.items()}
@@ -450,6 +496,39 @@ def test_collectives_match_reference(run, path):
     kinds = ref[0]
     assert ((kinds.count("reduce"), kinds.count("gather"))
             == {"powersgd": (2, 0), "top_k": (1, 2)}[path])
+
+
+# ---------------------------------------------------------------------------
+# (e) shared-seed and gather schemes of the zoo
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", list(ZOO_STEPS))
+def test_zoo_replicas_and_draws_agree(run, name):
+    """The same draws on every rank and in this process; bit-identical
+    replicas; each rank's losses and rank 0's parameters as on
+    ``SimMesh(4)``."""
+    start = bridge.to_torch(run["inputs"]["start"]["powersgd"]["params"])
+    mine = _draws_digest(start, ZOO_STEPS[name])
+    ranks = [run["ranks"][r][name] for r in range(W)]
+    assert all(o["draws"] == mine for o in ranks)
+    assert all(o["digests"] == ranks[0]["digests"] for o in ranks)
+    step, _ = train.make_sim_train_step(
+        llama3_8b.reduced_config(), SimMesh(W), _hyper(),
+        compressors.make_compressor(name, rank=2), device="cpu")
+    params = start
+    ef = EFState(error=tree.map(lambda p: torch.zeros((W,) + tuple(p.shape)), params),
+                 momentum=tree.map(torch.zeros_like, params), comp=None)
+    losses = []
+    for b in run["inputs"]["batches"][name]:
+        params, ef, m = step(params, ef, SimMesh(W).shard(
+            {k: torch.tensor(v) for k, v in b.items()}), seed=ZOO_SEED)
+        losses.append(m["lm_loss"].item())
+    for o in ranks:
+        np.testing.assert_allclose(o["losses"], losses, rtol=LOSS_RTOL)
+    for (p, g), w_ in zip(tree.items(ranks[0]["params"]),
+                          tree.leaves(bridge.to_numpy(params))):
+        np.testing.assert_allclose(g, w_, atol=PARAM_ATOL, rtol=0,
+                                   err_msg=str(list(p)))
 
 
 # ---------------------------------------------------------------------------

@@ -107,12 +107,12 @@ def test_flat_plan_ignores_worker_dims():
 
 @pytest.mark.parametrize("wire_dtype", ["bfloat16", "int8", "int4"])
 def test_unported_wire_dtypes_raise(wire_dtype):
-    """bfloat16 still waits for item 18 and raises; the quantized wires are
+    """bfloat16 still waits for item 11 and raises; the quantized wires are
     ported and plan like the reference (``tests/test_torch_topk.py`` holds
     them slot for slot)."""
     parts = [torch.zeros(3), torch.zeros(4, dtype=torch.int32)]
     if wire_dtype not in mz.PORTED_WIRE_DTYPES:
-        with pytest.raises(NotImplementedError, match="item 18"):
+        with pytest.raises(NotImplementedError, match="item 11"):
             mz.plan_flat(parts, wire_dtype=wire_dtype)
         return
     plan = mz.plan_flat(parts, wire_dtype=wire_dtype)

@@ -115,7 +115,7 @@ def test_config_and_specs_match_reference(reduced):
 
 
 def test_unported_architectures_raise():
-    with pytest.raises(NotImplementedError, match="item 22"):
+    with pytest.raises(NotImplementedError, match="item 15"):
         base.get_config("mamba2-1.3b")
 
 

@@ -16,7 +16,7 @@ from repro.core import matrixize as jmz
 from repro.core import powersgd as jpsgd
 from repro.core.simmesh import SimMesh as JSimMesh
 from repro_torch import bridge, tree
-from repro_torch.core import dist, matrixize as mz, powersgd
+from repro_torch.core import dist, engine, matrixize as mz, powersgd
 from repro_torch.core.compressors import PowerSGDCompressor
 from repro_torch.core.simmesh import SimMesh
 
@@ -162,23 +162,33 @@ def test_collective_budget_matches_declared():
 
 
 def test_cold_start_draws_from_generator():
-    """warm_start=False equals warm start fed the same generator's draws."""
+    """warm_start=False equals warm start fed each leaf's fresh factor from
+    the generator of the step's seed and the leaf's path
+    (``engine.leaf_generator``), on both paths; without a seed it raises."""
     deltas = bridge.to_torch(_deltas(2))
     shapes = bridge.to_torch(_deltas(0))
     warm_cfg = powersgd.PowerSGDConfig(rank=3)
-    cold_cfg = powersgd.PowerSGDConfig(rank=3, warm_start=False)
     stale = powersgd.init_state(warm_cfg, shapes, _specs(mz),
                                 torch.Generator().manual_seed(5))
-    fresh = powersgd.init_state(warm_cfg, shapes, _specs(mz),
-                                torch.Generator().manual_seed(9))
+    fresh = tree.unflatten(stale, [
+        None if q is None else
+        torch.randn(q.shape, generator=engine.leaf_generator(9, path))
+        for path, q in tree.items(stale)])
     ctx = SimMesh(2).ctx()
-    cold = powersgd.compress_aggregate(cold_cfg, deltas, stale, _specs(mz), ctx,
-                                       generator=torch.Generator().manual_seed(9))
     warm = powersgd.compress_aggregate(warm_cfg, deltas, fresh, _specs(mz), ctx)
-    for a, b in zip(tree.leaves(cold.agg), tree.leaves(warm.agg)):
-        assert torch.equal(a, b)
-    with pytest.raises(ValueError, match="generator"):
-        powersgd.compress_aggregate(cold_cfg, deltas, stale, _specs(mz), ctx)
+    for bucketing in ("auto", "off"):
+        cold_comp = PowerSGDCompressor(rank=3, warm_start=False,
+                                       bucketing=bucketing)
+        cold = cold_comp.step(deltas, stale, _specs(mz), ctx, seed=9)
+        for a, b in zip(tree.leaves(cold.state), tree.leaves(fresh)):
+            assert (a is None) == (b is None)
+        for a, b in zip(tree.leaves(cold.agg), tree.leaves(warm.agg)):
+            if bucketing == "auto":
+                assert torch.equal(a, b)
+            else:
+                torch.testing.assert_close(a, b, atol=ATOL, rtol=RTOL)
+        with pytest.raises(ValueError, match="seed"):
+            cold_comp.step(deltas, stale, _specs(mz), ctx)
 
 
 def test_compressed_floats_total_matches_reference():
@@ -188,12 +198,27 @@ def test_compressed_floats_total_matches_reference():
     assert powersgd.compressed_floats_total(pshapes, _specs(mz), 3) == want
 
 
-@pytest.mark.parametrize("kw,item", [({"bucketing": "off"}, "item 7"),
-                                     ({"track_residual": True}, "item 14"),
-                                     ({"wire_dtype": "bfloat16"}, "item 18")])
+@pytest.mark.parametrize("kw,item", [({"bucketing": "off"}, None),
+                                     ({"track_residual": True}, "item 8"),
+                                     ({"wire_dtype": "bfloat16"}, "item 11")])
 def test_unported_options_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        powersgd.PowerSGDConfig(**kw)
+    """Options still to port raise, naming their ROADMAP queue A item;
+    ``bucketing="off"`` (the per-leaf path, item 4) is ported and matches
+    the reference's per-leaf path."""
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            powersgd.PowerSGDConfig(**kw)
+        return
+    deltas = _deltas(4)
+    agg_r, recon_r, q_r, bits_r, stats_r, q0 = _reference(
+        jpsgd.PowerSGDConfig(rank=2, **kw), deltas, 4)
+    agg, recon, q, bits, stats = _port(powersgd.PowerSGDConfig(rank=2, **kw),
+                                       deltas, q0, 4)
+    _close(agg, agg_r)
+    _close(q, q_r)
+    _close(recon, recon_r, held_once=True)
+    assert bits == bits_r
+    assert stats.sizes == stats_r.sizes and stats.kinds == stats_r.kinds
 
 
 def test_simmesh_data_movement():
