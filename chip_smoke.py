@@ -20,9 +20,11 @@ Phases, in order; any failure raises and the script exits non-zero:
               ``torch.mm``), and, held without timing, the slabs the other
               paths give the kernels: the six parameter slabs of phase 5
               and every matrix leaf of the per-leaf PowerSGD path (Llama at
-              W = 2, the LM at W = 4).  Then the same at the five bucket
-              slabs of the benchmark LM (4 workers folded into the batch),
-              timed by graph replay.  Then hold ``nibble_pack`` and ``nibble_unpack``
+              W = 2, the LM at W = 4), and the five bucket slabs of the
+              benchmark LM at every other rank the paper's tables train
+              (1, 4, 7, 8, 16, 32).  Then rank 2 at the LM's five bucket
+              slabs (4 workers folded into the batch), timed by graph
+              replay.  Then hold ``nibble_pack`` and ``nibble_unpack``
               bit for bit against their plain versions (every int8 code,
               every byte, odd, long, batched and unaligned shapes, the int4
               chunk of the Top-K path, and the int4 chunks of Sign+Norm's
@@ -69,6 +71,14 @@ Phases, in order; any failure raises and the script exits non-zero:
               1 reduce and 2 gathers per step, each nibble kernel launched
               once per step, no low-rank kernel.  One more step profiled;
               every kernel class of the two profiles must match a kernel.
+8. zoo      — 3 steps each of bucketed and per-leaf PowerSGD, Unbiased
+              Rank-K, Random Block, Random K and Sign+Norm at the full
+              width of phase 6 (``LLAMA_ZOO``).
+9. tables   — every driver of ``repro_torch.bench.tables`` (the paper's
+              Tables 1–6, Fig. 3, Appendix D) on the card, each row
+              printed, and on the CPU: card against CPU under the rules
+              given at ``TABLE_STEPS``, launches per driver as expected;
+              Table 5 also at full width, printing ``coding_ms``.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after; the summary line gives each kernel's launches on every
@@ -310,9 +320,10 @@ RANK_CHECKS = [((8, 4096, 4096), r, 0) for r in (1, 3, 4, 17, 32)] + [
 
 def kernel_phase(torch, lowrank, ref, shapes, peaks, held):
     """Hold both kernels against their plain versions at the main path's
-    shapes and time them; then the checks of ``RANK_CHECKS`` and, at rank
-    RANK, at each slab of ``held`` (shapes another path gives the kernels,
-    held without timing).  Returns per-kernel totals over the shapes."""
+    shapes and time them; then the checks of ``RANK_CHECKS`` and each
+    ``(label, slab, rank)`` of ``held`` (what another path gives the
+    kernels, held without timing).  Returns per-kernel totals over the
+    shapes."""
     rows = slab_rows(torch, lowrank, ref, shapes, peaks, seed=0, events=True)
     totals = kernel_totals(rows, "kernel_ms", "plain_ms", "library_ms")
     graph = kernel_totals(rows, "kernel_graph_ms", "plain_graph_ms",
@@ -325,7 +336,7 @@ def kernel_phase(torch, lowrank, ref, shapes, peaks, held):
 
     gen = torch.Generator("cuda").manual_seed(2)
     checks = [("rank", c) for c in RANK_CHECKS]
-    checks += [("held slab", (shape, RANK, 0)) for shape in held]
+    checks += [(what, (shape, r, 0)) for what, shape, r in held]
     for what, (shape, r, offset) in checks:
         m = torch.empty(math.prod(shape) + offset, device="cuda")[offset:].view(shape)
         m.copy_(torch.randn(shape, generator=gen, device="cuda"))
@@ -1193,6 +1204,142 @@ def zoo_llama_phase(torch, mods, kernel_mods, cfg, compressors, CollectiveStats,
     return out
 
 
+# The paper's tables (phase 9): every training driver of
+# repro_torch.bench.tables on the card at TABLE_STEPS steps of the LMSpec's
+# 150 (cut to fit the script's time; ``python -m repro_torch.bench.run`` runs
+# the full tables), then on the CPU from the same initial state, Table 3 at
+# TABLE_STEPS and the others at TABLE_CPU_STEPS.  Every column but
+# eval_loss must equal the CPU's; Table 3's eval_loss (identity and
+# PowerSGD, ranks 1, 2, 4) within LM_LOSS_RTOL of the CPU's (phase 4's
+# rule); every other eval_loss finite, but for the schemes that diverge on
+# this LM in both packages (LM_DIVERGES), which are printed.  B1/B2 launch
+# once per LM bucket per step and once more for the bits probe, for each
+# PowerSGD run of a table (the best approximation: four power iterations).
+# Table 5 and Fig. 3 at the reduced Llama-3-8B tree, card against CPU with
+# every column but coding_ms equal; Table 5 also at the full width of
+# Llama-3-8B with 2 layers, its bits held against the shapes' own count
+# (on the meta device).
+TABLE_STEPS, TABLE_CPU_STEPS = 10, 1
+TABLE_RANKS = (1, 4, 7, 8, 16, 32)       # the tables' ranks beside RANK
+TABLE_POWERSGD_RUNS = {"table1_error_feedback": 2, "table2_warm_start": 6,
+                       "table3_rank_sweep": 3, "table4_compressor_zoo": 2,
+                       "table6_other_methods": 1, "appendixD_transformer": 4}
+CODING_CALLS = 7   # measure_coding_time's warm-up and 5 timed calls, the probe
+
+
+def table_launches_want(launches, lowrank):
+    want = {k: 0 for k in launches}
+    want.update(lowrank_project=lowrank, lowrank_backproject=lowrank)
+    return want
+
+
+def rows_without(rows, key):
+    return [[(k, v) for k, v in r.items() if k != key] for r in rows]
+
+
+def tables_phase(torch, tables, bench, compressors, model, tree, get_config,
+                 kernel_mods, cfg, lm_buckets):
+    """The paper's tables on the card against the CPU (the rules above),
+    every launch count set to 0 just before each driver and read just
+    after.  Returns {driver: launches}."""
+    out = {}
+    for name, runs in TABLE_POWERSGD_RUNS.items():
+        driver = getattr(tables, name)
+        reset_all_launches(kernel_mods)
+        t0 = time.perf_counter()
+        rows = driver(bench.LMSpec(steps=TABLE_STEPS))
+        seconds = time.perf_counter() - t0
+        launches = read_all_launches(kernel_mods)
+        for row in rows:
+            print(json.dumps({"table": name, "steps": TABLE_STEPS, **row}), flush=True)
+        cpu_steps = TABLE_STEPS if name == "table3_rank_sweep" else TABLE_CPU_STEPS
+        cpu_rows = driver(bench.LMSpec(steps=cpu_steps), device="cpu")
+        print(json.dumps({"table": name, "card_seconds": seconds,
+                          "launches": launches, "cpu_steps": cpu_steps,
+                          "cpu_eval_loss": [r["eval_loss"] for r in cpu_rows]}),
+              flush=True)
+        want = table_launches_want(launches, (TABLE_STEPS + 1) * lm_buckets * runs)
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches}, want {want}")
+        if rows_without(rows, "eval_loss") != rows_without(cpu_rows, "eval_loss"):
+            raise AssertionError(f"{name}: card rows {rows} differ from the CPU's "
+                                 f"{cpu_rows} beyond eval_loss")
+        for row, cpu in zip(rows, cpu_rows):
+            loss = row["eval_loss"]
+            if name == "table3_rank_sweep":
+                if not abs(loss - cpu["eval_loss"]) <= LM_LOSS_RTOL * abs(cpu["eval_loss"]):
+                    raise AssertionError(f"{name} {row['algorithm']}: eval_loss "
+                                         f"{loss} against the CPU's {cpu['eval_loss']}")
+            elif not (math.isfinite(loss)
+                      or row["algorithm"].startswith(LM_DIVERGES)):
+                raise AssertionError(f"{name} {row['algorithm']}: eval_loss {loss}")
+        out[name] = launches
+
+    small_cfg = get_config("llama3-8b", reduced=True)
+    small_buckets = len(bench.model_buckets(small_cfg))
+    small_specs = model.mspecs(small_cfg)
+    small = model.init(small_cfg, torch.Generator("cuda").manual_seed(0),
+                       device="cuda")
+    small_cpu = tree.map(lambda x: x.cpu(), small)
+    for name, calls in (("table5_time_breakdown", CODING_CALLS), ("fig3_scaling", 1)):
+        driver = getattr(tables, name)
+        reset_all_launches(kernel_mods)
+        rows = driver(small, small_specs)
+        launches = read_all_launches(kernel_mods)
+        for row in rows:
+            print(json.dumps({"table": name, "tree": small_cfg.name, **row}),
+                  flush=True)
+        want = table_launches_want(launches, calls * small_buckets)
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches}, want {want}")
+        cpu_rows = driver(small_cpu, small_specs, device="cpu")
+        if rows_without(rows, "coding_ms") != rows_without(cpu_rows, "coding_ms"):
+            raise AssertionError(f"{name}: card rows differ from the CPU's")
+        out[f"{name}, {small_cfg.name}"] = launches
+    del small, small_cpu
+
+    # Table 5 at full width: coding_ms of identity, PowerSGD and Sign+Norm
+    specs = model.mspecs(cfg)
+    meta = model.init(cfg, None, device="meta")
+    psgd = compressors.make_compressor("powersgd", rank=RANK)
+    bits = {
+        "identity": compressors.make_compressor("identity").step(
+            meta, None, specs, seed=0).bits_per_worker,
+        "powersgd": 32 * sum(bench.payload_floats(meta, specs,
+                                                  psgd.init(meta, specs))),
+        "sign_norm": compressors.make_compressor("sign_norm").step(
+            meta, None, specs, seed=0).bits_per_worker}
+    torch.cuda.empty_cache()
+    full = model.init(cfg, torch.Generator("cuda").manual_seed(0), device="cuda")
+    reset_all_launches(kernel_mods)
+    t0 = time.perf_counter()
+    rows = tables.table5_time_breakdown(full, specs)
+    seconds = time.perf_counter() - t0
+    launches = read_all_launches(kernel_mods)
+    for row in rows:
+        print(json.dumps({"table": "table5_time_breakdown", "tree": cfg.name,
+                          "layers": cfg.num_layers, **row}), flush=True)
+    print(json.dumps({"check": "table5 at full width", "coding_ms": {
+        r["algorithm"]: r["coding_ms"] for r in rows if r["workers"] == 2},
+        "reading": "host clock around eager steps (the wrappers' host work "
+                   "included); sign_norm's is W = 2 decodes", "seconds": seconds}),
+        flush=True)
+    want = table_launches_want(launches, CODING_CALLS * len(bench.model_buckets(cfg)))
+    if launches != want:
+        raise AssertionError(f"table5 at full width: launches {launches}, want {want}")
+    for row in rows:
+        b = bits[row["algorithm"]]
+        exch = round(bench.comm_time(b / 8, row["workers"], row["allreduce"]) * 1e3, 3)
+        if (row["bits_per_worker"], row["exchange_ms"]) != (b, exch) or not (
+                math.isfinite(row["coding_ms"]) and row["coding_ms"] > 0):
+            raise AssertionError(f"table5 at full width: {row}, want bits {b}, "
+                                 f"exchange_ms {exch}")
+    out[f"table5_time_breakdown, {cfg.name} {cfg.num_layers} layers"] = launches
+    del full
+    torch.cuda.empty_cache()
+    return out
+
+
 def int4_chunk_shape(torch, cfg, model, matrixize, tree, workers, scheme="top_k"):
     """(workers, codes) of the int4 chunk ``scheme``'s gather packs each
     step on ``cfg``: its float payload parts per compressed leaf (Top-K: b =
@@ -1254,6 +1401,8 @@ def main() -> None:
 
     from repro_torch import tree
     from repro_torch.bench import common as bench
+    from repro_torch.bench import tables
+    from repro_torch.configs.base import get_config
     from repro_torch.configs import llama3_8b
     from repro_torch.core import compressors, matrixize
     from repro_torch.core import dist as pdist
@@ -1309,11 +1458,13 @@ def main() -> None:
     lm_leaves, lm_n_leaves, lm_n_vectors = leaf_slabs(
         lm_cfg, model, matrixize, tree, lm_spec.workers)
     print(f"per-leaf slabs (workers folded into B): Llama {leaves}, LM {lm_leaves}")
-    totals = kernel_phase(torch, lowrank, ref, slabs, peaks,
-                          held=param_slabs + leaves + lm_leaves)
     lm_buckets = bench.model_buckets(lm_cfg)
     lm_slabs = [(lm_spec.workers * bk.count, bk.n, bk.m) for bk in lm_buckets]
     print(f"benchmark-LM bucket slabs (workers folded into B): {lm_slabs}")
+    # the paper's tables (phase 9) train PowerSGD on the LM at these ranks
+    held = [("held slab", s, RANK) for s in param_slabs + leaves + lm_leaves]
+    held += [("lm slab, table rank", s, r) for r in TABLE_RANKS for s in lm_slabs]
+    totals = kernel_phase(torch, lowrank, ref, slabs, peaks, held=held)
     lm_slab_phase(torch, lowrank, ref, lm_slabs, peaks)
     chunk_shape = int4_chunk_shape(torch, cfg, model, matrixize, tree, WORKERS)
     print(f"Top-K int4 chunk (workers x codes): {chunk_shape}")
@@ -1424,11 +1575,18 @@ def main() -> None:
                                    n_vectors)
     print(f"zoo_llama: {time.perf_counter() - t_zoo:.1f} s")
 
+    # -- 9. the paper's tables ------------------------------------------------
+    t_tables = time.perf_counter()
+    table_launches = tables_phase(torch, tables, bench, compressors, model, tree,
+                                  get_config, kernel_mods, cfg, len(lm_buckets))
+    print(f"tables: {time.perf_counter() - t_tables:.1f} s")
+
     # launches of each kernel on every path this run drove
     paths = {"llama powersgd": psgd, "llama top_k_int4": topk,
              **{f"dist {k}": v for k, v in dist_launches.items()},
              **{f"llama zoo {k}": v for k, v in zoo_launches.items()},
-             **{f"bench_lm {k}": v for k, v in lm_launches.items()}}
+             **{f"bench_lm {k}": v for k, v in lm_launches.items()},
+             **{f"tables {k}": v for k, v in table_launches.items()}}
     by_path = lambda kernel: {p: v[kernel] for p, v in paths.items() if v[kernel]}
 
     summary = []

@@ -1,6 +1,7 @@
-"""The benchmark LM every paper table trains (port of ``LMSpec``,
-``_make_cfg``, ``payload_floats`` and ``train_lm`` of the JAX package's
-``benchmarks/common.py``).
+"""The benchmark LM every paper table trains, and the paper's α-β
+communication model (port of ``LMSpec``, ``_make_cfg``, ``payload_floats``,
+``train_lm``, ``comm_time``, ``broadcast_time``, ``measure_coding_time`` and
+``bytes_per_epoch_mb`` of the JAX package's ``benchmarks/common.py``).
 
 :func:`train_lm` trains a small dense transformer LM on order-1 Markov data
 under error feedback and a compressor, with W simulated workers on one
@@ -19,6 +20,10 @@ JAX package's ``fold_in(key(123), step)``).
 It runs on the CUDA card unless ``device`` says otherwise.  Not ported yet:
 adaptive-rank controllers (ROADMAP queue A, item 8) and
 ``init_comp_transform`` (the autotuner's plans, item 9).
+
+The α-β constants (:data:`BW`, :data:`LATENCY`) model the paper's cluster
+(Appendix B: 10 Gbit/s Ethernet, NCCL-like and GLOO-like backends); they
+are not figures of any card the port runs on.
 """
 
 from __future__ import annotations
@@ -106,6 +111,45 @@ def _to(t, dev):
     return tree.map(lambda x: None if x is None else x.to(dev, copy=True), t)
 
 
+def sync(dev: torch.device) -> None:
+    """Wait for ``dev`` to finish its queued work (a no-op on the CPU)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def lm_data(spec: LMSpec) -> MarkovLM:
+    return MarkovLM(vocab=spec.vocab, seed=spec.seed, order=spec.order,
+                    clusters=spec.clusters)
+
+
+def eval_set(data: MarkovLM, spec: LMSpec, batches: int, dev):
+    """The held-out batches: stream steps the training never reaches."""
+    out = []
+    for i in range(batches):
+        b = torch.tensor(data.sample(EVAL_BATCH, spec.seq, step=EVAL_STEP0 + i),
+                         device=dev)
+        out.append({"tokens": b[:, :-1], "labels": b[:, 1:]})
+    return out
+
+
+def eval_loss(params, cfg: ModelConfig, batches) -> float:
+    """Mean loss of ``params`` over the held-out ``batches``."""
+    with torch.no_grad():
+        return float(np.mean([model.loss_fn(params, b, cfg, q_chunk=Q_CHUNK)[0].item()
+                              for b in batches]))
+
+
+def probe_bits(compressor: Compressor, params, specs, seed: int = 0) -> int:
+    """``bits_per_worker`` of one step of ``compressor`` on zeros shaped like
+    ``params``, on their device, from a state initialized with ``seed``
+    (the bits depend on the shapes alone)."""
+    zeros = tree.map(torch.zeros_like, params)
+    dev = tree.leaves(zeros)[0].device
+    state = compressor.init(zeros, specs, torch.Generator(dev).manual_seed(seed))
+    return int(compressor.step(zeros, state, specs, ctx=SINGLE,
+                               seed=RUN_SEED).bits_per_worker)
+
+
 def train_lm(compressor: Compressor, spec: LMSpec = LMSpec(),
              eval_batches: int = 8, controller=None, init_comp_transform=None,
              *, device=None, params=None, comp_state=None, stats=None,
@@ -148,18 +192,9 @@ def train_lm(compressor: Compressor, spec: LMSpec = LMSpec(),
         momentum=tree.map(torch.zeros_like, params),
         comp=_to(comp_state, dev), step=0)
 
-    data = MarkovLM(vocab=spec.vocab, seed=spec.seed, order=spec.order,
-                    clusters=spec.clusters)
+    data = lm_data(spec)
     it = data.batches(spec.batch_per_worker * spec.workers, spec.seq)
-    eval_data = []
-    for i in range(eval_batches):
-        b = torch.tensor(data.sample(EVAL_BATCH, spec.seq, step=EVAL_STEP0 + i),
-                         device=dev)
-        eval_data.append({"tokens": b[:, :-1], "labels": b[:, 1:]})
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+    eval_data = eval_set(data, spec, eval_batches, dev)
 
     t0 = time.time()
     bits = None
@@ -179,20 +214,13 @@ def train_lm(compressor: Compressor, spec: LMSpec = LMSpec(),
         params, state, _ = error_feedback.apply_updates(
             compressor, params, grads, state, specs, lr=spec.lr,
             momentum=spec.momentum, ctx=ctx, seed=RUN_SEED)
-        sync()
+        sync(dev)
         step_ms.append((time.perf_counter() - ts) * 1e3)
         if bits is None:
-            zeros = tree.map(torch.zeros_like, params)
-            probe_state = compressor.init(
-                zeros, specs, torch.Generator(dev).manual_seed(spec.seed))
-            bits = compressor.step(zeros, probe_state, specs, ctx=SINGLE,
-                                   seed=RUN_SEED).bits_per_worker
+            bits = probe_bits(compressor, params, specs, spec.seed)
     train_time = time.time() - t0
 
-    with torch.no_grad():
-        ev = float(np.mean([
-            model.loss_fn(params, b, cfg, q_chunk=Q_CHUNK)[0].item()
-            for b in eval_data]))
+    ev = eval_loss(params, cfg, eval_data)
     result = {
         "compressor": compressor.name,
         "eval_loss": ev,
@@ -209,3 +237,67 @@ def train_lm(compressor: Compressor, spec: LMSpec = LMSpec(),
         "step_ms": step_ms,
     }
     return (result, params) if return_params else result
+
+
+# ---------------------------------------------------------------------------
+# communication model (the paper's Appendix B cluster: 10 Gbit/s Ethernet)
+# ---------------------------------------------------------------------------
+
+BW = {"nccl_10gbit": 10e9 / 8, "gloo_10gbit": 2.5e9 / 8}
+LATENCY = {"nccl_10gbit": 30e-6, "gloo_10gbit": 150e-6}
+
+
+def comm_time(bytes_per_worker: float, workers: int, allreduce: bool,
+              backend: str = "nccl_10gbit") -> float:
+    """Modeled seconds to aggregate one step's messages among ``workers``.
+
+    ``bytes_per_worker`` is the payload one worker contributes.  An
+    all-reduce costs ``2(W−1)/W · bytes / bw`` plus ``⌈log2 W⌉`` latencies;
+    an all-gather ``(W−1) · bytes / bw`` plus ``W−1`` latencies, since every
+    worker receives every other worker's payload.
+    """
+    bw = BW[backend]
+    lat = LATENCY[backend]
+    if workers <= 1:
+        return 0.0
+    if allreduce:
+        rounds = math.ceil(math.log2(workers))
+        return 2 * (workers - 1) / workers * bytes_per_worker / bw + lat * rounds
+    return (workers - 1) * bytes_per_worker / bw + lat * (workers - 1)
+
+
+def broadcast_time(bytes_root: float, workers: int,
+                   backend: str = "nccl_10gbit") -> float:
+    """Modeled seconds for rank 0 to broadcast ``bytes_root`` to W−1
+    receivers (scatter + all-gather: half an all-reduce's bandwidth term,
+    the same ``⌈log2 W⌉`` latencies)."""
+    if workers <= 1:
+        return 0.0
+    rounds = math.ceil(math.log2(workers))
+    return ((workers - 1) / workers * bytes_root / BW[backend]
+            + LATENCY[backend] * rounds)
+
+
+def measure_coding_time(compressor: Compressor, params, specs,
+                        iters: int = 5, *, device=None) -> float:
+    """Measured seconds of one compress + aggregate + decompress step of
+    ``compressor`` on ``params``' shapes (gradients of 0.01 everywhere), on
+    ``device`` (the CUDA card unless it says otherwise): one warm-up call,
+    then ``iters`` calls with seeds ``RUN_SEED + i`` on the host clock, the
+    device synchronized before and after.  The calls run eagerly, so the
+    time includes the host's work around each kernel."""
+    dev = resolve_device(device)
+    params = tree.map(lambda x: x.to(dev), params)
+    state = compressor.init(params, specs, torch.Generator(dev).manual_seed(0))
+    grads = tree.map(lambda p: torch.ones_like(p) * 0.01, params)
+    compressor.step(grads, state, specs, seed=RUN_SEED)
+    sync(dev)
+    t0 = time.perf_counter()
+    for i in range(iters):
+        compressor.step(grads, state, specs, seed=RUN_SEED + i)
+    sync(dev)
+    return (time.perf_counter() - t0) / iters
+
+
+def bytes_per_epoch_mb(bits_per_step: int, steps_per_epoch: int) -> float:
+    return bits_per_step / 8 / 1e6 * steps_per_epoch
