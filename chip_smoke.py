@@ -24,12 +24,18 @@ Phases, in order; any failure raises and the script exits non-zero:
               benchmark LM at every other rank the paper's tables train
               (1, 4, 7, 8, 16, 32).  Then rank 2 at the LM's five bucket
               slabs (4 workers folded into the batch), timed by graph
-              replay.  Then hold ``nibble_pack`` and ``nibble_unpack``
-              bit for bit against their plain versions (every int8 code,
-              every byte, odd, long, batched and unaligned shapes, the int4
-              chunk of the Top-K path, and the int4 chunks of Sign+Norm's
-              norms and Spectral Atomo's (P, V) on the LM at W = 4 and on
-              Llama at W = 2) and time them at the Top-K chunk.
+              replay.  Then the same at the bucket slabs of the paper's
+              own models with 16 workers folded into B (phase 10):
+              ResNet-18's twelve at rank 2 and the LSTM's two at rank 4,
+              whose 650-float rows (and ResNet's 27-float first
+              convolution) are read as words.  Then hold ``nibble_pack``
+              and ``nibble_unpack`` bit for bit against their plain
+              versions (every int8 code, every byte, odd, long, batched
+              and unaligned shapes, the int4 chunk of the Top-K path, and
+              the int4 chunks of Sign+Norm's norms and Spectral Atomo's
+              (P, V) on the LM at W = 4 and on Llama at W = 2) and time
+              them at the Top-K chunk beside the floor one launch meets
+              there: a device-to-device ``copy_`` of the same int8 codes.
               Then drive ``ops.ef_apply`` (the fused error-feedback apply,
               whose entry point is its main path) once at each of the six
               parameter slabs, hold every result against its plain version,
@@ -75,10 +81,18 @@ Phases, in order; any failure raises and the script exits non-zero:
               Rank-K, Random Block, Random K and Sign+Norm at the full
               width of phase 6 (``LLAMA_ZOO``).
 9. tables   — every driver of ``repro_torch.bench.tables`` (the paper's
-              Tables 1–6, Fig. 3, Appendix D) on the card, each row
+              Tables 1–7, Fig. 3, Appendix D) on the card, each row
               printed, and on the CPU: card against CPU under the rules
               given at ``TABLE_STEPS``, launches per driver as expected;
               Table 5 also at full width, printing ``coding_ms``.
+10. paper   — the paper's own models at their published widths
+              (``PAPER``): ResNet-18 on CIFAR-10-shaped images and the
+              3-layer LSTM on WikiText-2-shaped token streams, each first
+              card against CPU over 2 steps at W = 2 and a small batch
+              (the ResNet's parameters within ``RESNET_PARAM_ATOL``),
+              then 5 EF-PowerSGD steps with 16 simulated workers, launches
+              counted (B1b and B2b once per bucket per step), step time
+              and peak memory, and one more step profiled.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after; the summary line gives each kernel's launches on every
@@ -101,6 +115,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -232,8 +247,8 @@ def lowrank_bound(m, f, out_numel, r, peaks):
     return max(byte_ms, op_ms), ("bytes" if byte_ms >= op_ms else "operations")
 
 
-def slab_rows(torch, lowrank, ref, slabs, peaks, seed, events):
-    """At each (B, n, m) slab, rank RANK: hold both kernels against their
+def slab_rows(torch, lowrank, ref, slabs, peaks, seed, events, rank=RANK):
+    """At each (B, n, m) slab, rank ``rank``: hold both kernels against their
     plain versions, check that a second call gives the same bits, and time
     kernel, plain version and one ``torch.bmm`` of the same product by
     CUDA-graph replay (``*_graph_ms``); with ``events``, also by CUDA events
@@ -243,14 +258,14 @@ def slab_rows(torch, lowrank, ref, slabs, peaks, seed, events):
     rows = []
     for b, n, m_ in slabs:
         m = torch.randn((b, n, m_), generator=gen, device="cuda")
-        q = torch.randn((b, m_, RANK), generator=gen, device="cuda")
-        p = torch.randn((b, n, RANK), generator=gen, device="cuda")
+        q = torch.randn((b, m_, rank), generator=gen, device="cuda")
+        p = torch.randn((b, n, rank), generator=gen, device="cuda")
         mt = m.transpose(1, 2)
         cases = {
             "project": (lowrank.lowrank_project, ref.lowrank_project, q,
-                        lambda: torch.bmm(m, q), b * n * RANK),
+                        lambda: torch.bmm(m, q), b * n * rank),
             "backproject": (lowrank.lowrank_backproject, ref.lowrank_backproject,
-                            p, lambda: torch.bmm(mt, p), b * m_ * RANK),
+                            p, lambda: torch.bmm(mt, p), b * m_ * rank),
         }
         iters = max(3, min(50, int(2e10 / (4 * b * n * m_))))
         # both kernels timed before any check, after a round of calls whose
@@ -263,10 +278,10 @@ def slab_rows(torch, lowrank, ref, slabs, peaks, seed, events):
             if not torch.equal(got, kern(m, f)):
                 raise AssertionError(f"{kind} {(b, n, m_)}: two calls on the same "
                                      f"inputs differ")
-            plan = getattr(lowrank, f"plan_{kind}")(b, n, m_, RANK,
+            plan = getattr(lowrank, f"plan_{kind}")(b, n, m_, rank,
                                                     lowrank.sm_count(m.device))
-            row = {"kernel": f"lowrank_{kind}", "shape": [b, n, m_], "rank": RANK,
-                   "ctas": plan.ctas, "cluster": plan.cluster,
+            row = {"kernel": f"lowrank_{kind}", "shape": [b, n, m_], "rank": rank,
+                   "ctas": plan.ctas, "cluster": plan.cluster, "vec": plan.vec,
                    "repeat_bit_identical": True}
             if events:
                 row.update({
@@ -277,7 +292,7 @@ def slab_rows(torch, lowrank, ref, slabs, peaks, seed, events):
                 "kernel_graph_ms": graph_ms(torch, lambda: kern(m, f), iters),
                 "plain_graph_ms": graph_ms(torch, lambda: plain_fn(m, f), iters),
                 "library_graph_ms": graph_ms(torch, lib_fn, iters)})
-            row["bound_ms"], row["bound_by"] = lowrank_bound(m, f, out_numel, RANK,
+            row["bound_ms"], row["bound_by"] = lowrank_bound(m, f, out_numel, rank,
                                                              peaks)
             row["bound_share"] = row["bound_ms"] / row["kernel_graph_ms"]
             slab[kind] = (row, got)
@@ -377,13 +392,15 @@ def kernel_phase(torch, lowrank, ref, shapes, peaks, held):
     return totals
 
 
-def lm_slab_phase(torch, lowrank, ref, slabs, peaks):
-    """Both kernels at the benchmark LM's bucket slabs (its workers folded
-    into B): held against the plain version, a second call bit for bit, and
-    kernel, plain version, one ``torch.bmm`` and the bound by graph replay."""
-    rows = slab_rows(torch, lowrank, ref, slabs, peaks, seed=4, events=False)
+def slab_set_phase(torch, lowrank, ref, what, slabs, peaks, seed, rank=RANK):
+    """Both kernels at one model's bucket slabs (its workers folded into B):
+    held against the plain version, a second call bit for bit, and kernel,
+    plain version, one ``torch.bmm`` and the bound by graph replay; the sums
+    over the slabs printed as ``what``.  Returns the rows."""
+    rows = slab_rows(torch, lowrank, ref, slabs, peaks, seed=seed, events=False,
+                     rank=rank)
     t = kernel_totals(rows, "kernel_graph_ms", "plain_graph_ms", "library_graph_ms")
-    print(json.dumps({"check": "lm slabs, summed", **{
+    print(json.dumps({"check": f"{what}, summed", "rank": rank, **{
         f"{kind}_{key}": t[kind][key] for kind in t
         for key in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}}),
         flush=True)
@@ -459,22 +476,32 @@ def quant_phase(torch, quant, ref, chunk_shape, peaks, held):
     c = codes(chunk_shape)
     packed = ref.nibble_pack(c)
     n = chunk_shape[-1]
+    unpacked = quant.nibble_unpack(packed, n)
     nbytes = c.numel() + packed.numel()   # each input read, each output written once
+    # the floor one launch meets to move this payload: a device-to-device
+    # copy_ of B4a's input bytes and one of B4b's output bytes (the same
+    # count: the int8 codes), timed by the same graph replay
+    floors = {"nibble_pack": (torch.empty_like(c), c),
+              "nibble_unpack": (torch.empty_like(unpacked), unpacked)}
     rows = {}
     for name, kern, plain in (
             ("nibble_pack", lambda: quant.nibble_pack(c), lambda: ref.nibble_pack(c)),
             ("nibble_unpack", lambda: quant.nibble_unpack(packed, n),
              lambda: ref.nibble_unpack(packed, n))):
+        dst, src = floors[name]
         # device time per call, and the wall time per call of back-to-back
         # calls, which the host's launch cost sets at this size
         row = {"kernel": name, "shape": list(chunk_shape),
                "kernel_ms": graph_ms(torch, kern, 50),
                "plain_ms": graph_ms(torch, plain, 50),
+               "copy_floor_ms": graph_ms(torch, lambda: dst.copy_(src), 50),
+               "copy_floor_bytes": 2 * src.numel(),
                "kernel_call_ms": time_ms(torch, kern, 200),
                "plain_call_ms": time_ms(torch, plain, 200),
                "bound_ms": nbytes / bw * 1e3, "bound_by": "bytes",
                "max_abs_err": 0.0}
         row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+        row["over_copy_floor"] = row["kernel_ms"] / row["copy_floor_ms"]
         print(json.dumps(row), flush=True)
         rows[name] = row
     torch.cuda.synchronize()
@@ -597,10 +624,7 @@ def parity_phase(torch, mods, name, make_compressor, check):
         step, _ = train.make_sim_train_step(cfg, sim, hyper, device=dev,
                                             compressor=make_compressor())
         params, ef = init(torch.Generator().manual_seed(0))
-        move = lambda t: tree.map(lambda x: None if x is None else x.to(dev), t)
-        params = move(params)
-        ef = dataclasses.replace(ef, error=move(ef.error),
-                                 momentum=move(ef.momentum), comp=move(ef.comp))
+        params, ef = tree.map(lambda x: x.to(dev), params), ef.to(dev)
         data = MarkovLM(vocab=cfg.vocab_size, seed=0, order=1)
         losses = []
         for i in range(3):
@@ -679,16 +703,21 @@ def check_topk_parity(name, l_cpu, l_gpu, p_cpu, p_gpu, check="card_vs_cpu"):
 KERNEL_CLASSES = (("lowrank", ("project_kernel",)),
                   ("nibble", ("pack_kernel",)),
                   ("topk", ("topk", "sort", "radix", "select")),
+                  ("conv", ("conv2d", "convolve", "fprop", "dgrad", "wgrad",
+                            "implicit", "cudnn")),
                   ("gemm", ("gemm",)), ("copy", ("memcpy", "memset")))
+# the classes the Llama steps of phases 6 and 7 must show between them
+LLAMA_CLASSES = ("lowrank", "nibble", "topk", "gemm", "copy")
 
 
-def profile_phase(torch, path, step, params, ef, batch, step_ms):
-    """One step under torch.profiler: where the device time goes."""
+def profile_phase(torch, path, run, step_ms):
+    """One step (``run()``) under torch.profiler: where the device time
+    goes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(params, ef, batch)
+        run()
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     dev_ms = lambda e: getattr(e, "self_device_time_total",
@@ -775,7 +804,7 @@ def train_phase(torch, mods, kernel_mods, cfg, path, compressor, stats=None,
         raise AssertionError(f"{path}: step counter {ef.step}")
     if stats is not None:
         stats.reset()
-    classes = profile_phase(torch, path, step, params, ef, batches[0],
+    classes = profile_phase(torch, path, lambda: step(params, ef, batches[0]),
                             statistics.median(step_ms))
     return launches, classes
 
@@ -1237,7 +1266,7 @@ def rows_without(rows, key):
     return [[(k, v) for k, v in r.items() if k != key] for r in rows]
 
 
-def tables_phase(torch, tables, bench, compressors, model, tree, get_config,
+def tables_phase(torch, tables, bench, compressors, model, lstm, tree, get_config,
                  kernel_mods, cfg, lm_buckets):
     """The paper's tables on the card against the CPU (the rules above),
     every launch count set to 0 just before each driver and read just
@@ -1274,6 +1303,37 @@ def tables_phase(torch, tables, bench, compressors, model, tree, get_config,
                       or row["algorithm"].startswith(LM_DIVERGES)):
                 raise AssertionError(f"{name} {row['algorithm']}: eval_loss {loss}")
         out[name] = launches
+
+    # Table 7: the scaled-down LSTM, identity and PowerSGD at ranks 1 and 4;
+    # B1/B2 once per LSTM bucket per PowerSGD step (no bits probe)
+    lstm_meta = lstm.init(tables.TABLE7_CFG, None, device="meta")
+    lstm_buckets = len(bench.tree_buckets(lstm_meta, lstm.mspecs(lstm_meta)))
+    reset_all_launches(kernel_mods)
+    t0 = time.perf_counter()
+    rows = tables.table7_lstm(TABLE_STEPS)
+    seconds = time.perf_counter() - t0
+    launches = read_all_launches(kernel_mods)
+    for row in rows:
+        print(json.dumps({"table": "table7_lstm", "steps": TABLE_STEPS, **row}),
+              flush=True)
+    cpu_rows = tables.table7_lstm(TABLE_STEPS, device="cpu")
+    print(json.dumps({"table": "table7_lstm", "card_seconds": seconds,
+                      "launches": launches, "cpu_steps": TABLE_STEPS,
+                      "cpu_eval_ppl": [r["eval_ppl"] for r in cpu_rows]}), flush=True)
+    want = table_launches_want(launches, TABLE_STEPS * lstm_buckets * 2)
+    if launches != want:
+        raise AssertionError(f"table7_lstm: launches {launches}, want {want}")
+    if rows_without(rows, "eval_ppl") != rows_without(cpu_rows, "eval_ppl"):
+        raise AssertionError(f"table7_lstm: card rows {rows} differ from the CPU's "
+                             f"{cpu_rows} beyond eval_ppl")
+    for row, cpu in zip(rows, cpu_rows):
+        # phase 4's rule on the perplexity, plus one unit of its rounding
+        if not abs(row["eval_ppl"] - cpu["eval_ppl"]) <= (
+                LM_LOSS_RTOL * cpu["eval_ppl"] + 0.01):
+            raise AssertionError(f"table7_lstm {row['algorithm']}: eval_ppl "
+                                 f"{row['eval_ppl']} against the CPU's "
+                                 f"{cpu['eval_ppl']}")
+    out["table7_lstm"] = launches
 
     small_cfg = get_config("llama3-8b", reduced=True)
     small_buckets = len(bench.model_buckets(small_cfg))
@@ -1338,6 +1398,196 @@ def tables_phase(torch, tables, bench, compressors, model, tree, get_config,
     del full
     torch.cuda.empty_cache()
     return out
+
+
+# The paper's own models (phase 10): ResNet-18 (width 64, blocks (2, 2, 2,
+# 2), 10 classes) on CIFAR-10-shaped images (GaussianClusters, 32×32×3) and
+# the 3-layer LSTM (vocab 28,869, embedding = hidden = 650) on
+# WikiText-2-shaped streams (MarkovLM over the same vocabulary, 30 tokens a
+# sequence), at the paper's widths and batches: PAPER_WORKERS simulated
+# workers of 128 images or 64 sequences each, EF-PowerSGD (bucketed,
+# momentum 0.9) at rank 2 (ResNet: lr paper_cifar_schedule(step, 0.1, 16,
+# 24), 24 steps an epoch being 50,000 images over 16 × 128, weight decay
+# 1e-4) and rank 4 (LSTM: Table 7's lr 1.0), for PAPER_STEPS steps and one
+# more profiled.  Each worker's gradient (ResNet: with its own BN state)
+# comes from SimMesh.run; the EF step runs once over the stacked results.
+# Before that, card against CPU at PAPER_CPU_WORKERS workers and a small
+# batch, PAPER_CPU_STEPS steps from one initial state.  Initial states are
+# drawn on the CPU from seed 0.  The LSTM is held to phase 3's PowerSGD rule
+# (loss within 1e-4 relative, parameters within 1e-4): on the CPU, initial
+# parameters moved by one ulp end those 2 steps 3.0e-8 apart.  The ResNet is
+# not that well conditioned in float32: at initialisation its float32
+# gradients are up to 2.7e-4 from the float64 ones (the largest is 0.26;
+# BatchNorm's backward sums 8,192 terms a channel that cancel), and the
+# first step at lr 0.1 raises the loss from 2.55 to 5.43, so initial
+# parameters moved by one ulp end the 2 steps 9.8e-4 apart on the CPU
+# alone (identity instead of PowerSGD: 1.7e-3), the losses 1.6e-5
+# relative (``python tests/test_torch_resnet.py`` measures all of these).
+# So the ResNet's losses are held within 1e-4 relative and its parameters
+# and BN state within RESNET_PARAM_ATOL, five times that one-ulp spread.
+RESNET_PARAM_ATOL = 5e-3
+PAPER_WORKERS, PAPER_STEPS = 16, 5
+PAPER_CPU_WORKERS, PAPER_CPU_STEPS = 2, 2
+LSTM_SEQ = 30
+CIFAR_STEPS_PER_EPOCH = 24
+# path: (rank, sequences or images per worker on the main path, global
+# batch of the card-against-CPU run)
+PAPER = {"resnet18": (2, 128, 16), "lstm": (4, 64, 4)}
+
+
+class PaperTrainer:
+    """EF-PowerSGD on one of the paper's models with ``workers`` simulated
+    workers on ``device``, through the port's entry points: the model's
+    ``loss_fn`` under ``grad_with_aux``, ``SimMesh.run`` and
+    ``error_feedback.apply_updates``."""
+
+    def __init__(self, torch, pm, path, workers, device):
+        self.torch, self.pm, self.path = torch, pm, path
+        self.workers, self.device = workers, device
+        self.sim = pm.SimMesh(workers)
+        self.comp = pm.compressors.make_compressor("powersgd", rank=PAPER[path][0])
+        if path == "resnet18":
+            self.mod, self.cfg = pm.resnet, pm.resnet.paper_resnet18()
+            self.data = pm.GaussianClusters(num_classes=self.cfg.num_classes,
+                                            image_size=32, channels=3, seed=0)
+            axes = (None, 0, 0, None)          # params, BN state, batch, cfg
+        else:
+            self.mod, self.cfg = pm.lstm, pm.lstm.paper_lstm()
+            self.data = pm.MarkovLM(vocab=self.cfg.vocab, seed=0, order=1)
+            axes = (None, 0, None)             # params, batch, cfg
+        self.grad = self.sim.run(pm.train.grad_with_aux(self.mod.loss_fn), axes)
+
+    def init(self):
+        """Parameters, per-worker BN state (ResNet) and EF state drawn on the
+        CPU from seed 0, on the device."""
+        torch, tree = self.torch, self.pm.tree
+        gen = torch.Generator().manual_seed(0)
+        params = self.mod.init(self.cfg, gen, device="cpu")
+        bn = None
+        if self.path == "resnet18":
+            params, bn = params
+            bn = tree.map(lambda x: x.to(self.device).unsqueeze(0).repeat(
+                (self.workers,) + (1,) * x.ndim), bn)
+        self.specs = self.mod.mspecs(params)
+        q = self.comp.init(params, self.specs, gen)
+        params = tree.map(lambda x: x.to(self.device), params)
+        ef = self.pm.error_feedback.EFState(
+            error=tree.map(lambda p: torch.zeros((self.workers,) + tuple(p.shape),
+                                                 device=self.device), params),
+            momentum=tree.map(torch.zeros_like, params),
+            comp=tree.map(lambda x: None if x is None else x.to(self.device), q))
+        return {"params": params, "bn": bn, "ef": ef}
+
+    def batches(self, per_worker, steps):
+        """The first ``steps`` global batches, sharded (W, b, ...)."""
+        out = []
+        for i in range(steps):
+            n = self.workers * per_worker
+            if self.path == "resnet18":
+                b = self.data.sample(n, i)
+            else:
+                toks = self.data.sample(n, LSTM_SEQ, i)
+                b = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+            out.append(self.sim.shard({k: self.torch.tensor(v, device=self.device)
+                                       for k, v in b.items()}))
+        return out
+
+    def step(self, st, batch):
+        """One step; updates ``st`` and returns the worker-mean loss."""
+        if self.path == "resnet18":
+            grads, (st["bn"], met) = self.grad(st["params"], st["bn"], batch,
+                                               self.cfg)
+            lr = self.pm.schedules.paper_cifar_schedule(
+                st["ef"].step, 0.1, self.workers, CIFAR_STEPS_PER_EPOCH)
+            wd = 1e-4
+        else:
+            grads, met = self.grad(st["params"], batch, self.cfg)
+            lr, wd = 1.0, 0.0
+        st["params"], st["ef"], _ = self.pm.error_feedback.apply_updates(
+            self.comp, st["params"], grads, st["ef"], self.specs, lr=lr,
+            momentum=0.9, weight_decay=wd, ctx=self.sim.ctx())
+        return met["loss"].mean()
+
+
+def paper_parity(torch, pm, path):
+    """Card against CPU: PAPER_CPU_STEPS steps at PAPER_CPU_WORKERS workers
+    from one initial state, under the rules above (parameters and, for the
+    ResNet, BN state)."""
+    _, _, batch = PAPER[path]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        tr = PaperTrainer(torch, pm, path, PAPER_CPU_WORKERS, dev)
+        st = tr.init()
+        losses = [tr.step(st, b).item() for b in
+                  tr.batches(batch // PAPER_CPU_WORKERS, PAPER_CPU_STEPS)]
+        held = pm.tree.leaves(st["params"]) + pm.tree.leaves(st["bn"] or {})
+        runs[dev] = (losses, [x.cpu() for x in held])
+    (l_cpu, p_cpu), (l_gpu, p_gpu) = runs["cpu"], runs["cuda"]
+    check_powersgd_parity(f"{path} (W={PAPER_CPU_WORKERS}, global batch {batch}, "
+                          f"{PAPER_CPU_STEPS} steps)", l_cpu, l_gpu, p_cpu, p_gpu,
+                          param_atol=RESNET_PARAM_ATOL if path == "resnet18"
+                          else 1e-4)
+
+
+def paper_phase(torch, pm, kernel_mods, path):
+    """One paper model on its main path: PAPER_STEPS steps at full width on
+    PAPER_WORKERS workers, every launch count set to 0 just before and read
+    just after; B1b and B2b must launch once per bucket per step and no
+    other kernel at all.  Then one step profiled.  Returns the launches."""
+    rank, per_worker, _ = PAPER[path]
+    t0 = time.perf_counter()
+    tr = PaperTrainer(torch, pm, path, PAPER_WORKERS, "cuda")
+    st = tr.init()
+    batches = tr.batches(per_worker, PAPER_STEPS + 1)
+    buckets = pm.bench.tree_buckets(st["params"], tr.specs)
+    n_params = sum(p.numel() for p in pm.tree.leaves(st["params"]))
+    slabs = [(PAPER_WORKERS * bk.count, bk.n, bk.m) for bk in buckets]
+    print(f"{path}: {tr.cfg}, {n_params:,} params, {PAPER_WORKERS} simulated "
+          f"workers x {per_worker} {'images' if path == 'resnet18' else 'sequences'}"
+          f", EF-PowerSGD rank {rank}, {len(buckets)} bucket slabs {slabs}; "
+          f"set-up {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches(kernel_mods)
+    losses, step_ms = [], []
+    for i in range(PAPER_STEPS):
+        t1 = time.perf_counter()
+        loss = tr.step(st, batches[i]).item()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(loss)
+        print(f"{path} step {i} loss={loss:.6f} step_ms={step_ms[-1]:.1f}", flush=True)
+    launches = read_all_launches(kernel_mods)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(json.dumps({"check": "paper model", "path": path, "params": n_params,
+                      "workers": PAPER_WORKERS, "per_worker": per_worker,
+                      "rank": rank, "losses": losses, "step_ms": step_ms,
+                      "median_step_ms": statistics.median(step_ms),
+                      "peak_gib": peak, "launches": launches}), flush=True)
+    want = {k: 0 for k in launches}
+    want.update(lowrank_project=PAPER_STEPS * len(buckets),
+                lowrank_backproject=PAPER_STEPS * len(buckets))
+    if launches != want:
+        raise AssertionError(f"{path}: launches {launches}, want {want} "
+                             f"({PAPER_STEPS} steps x {len(buckets)} buckets)")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{path}: non-finite loss: {losses}")
+    for name, t in (("params", st["params"]), ("BN state", st["bn"] or {}),
+                    ("error", st["ef"].error), ("momentum", st["ef"].momentum),
+                    ("compressor state", st["ef"].comp)):
+        for p, x in pm.tree.items(t):
+            if x is not None and not torch.isfinite(x).all():
+                raise AssertionError(f"{path}: non-finite {name} at {p}")
+    if st["ef"].step != PAPER_STEPS:
+        raise AssertionError(f"{path}: step counter {st['ef'].step}")
+    classes = profile_phase(torch, path, lambda: tr.step(st, batches[PAPER_STEPS]),
+                            statistics.median(step_ms))
+    if path == "resnet18" and not classes["conv"] > 0:
+        raise AssertionError("resnet18: no profiled kernel matched the conv class: "
+                             "its names in KERNEL_CLASSES are stale")
+    del tr, st, batches
+    torch.cuda.empty_cache()
+    return launches
 
 
 def int4_chunk_shape(torch, cfg, model, matrixize, tree, workers, scheme="top_k"):
@@ -1409,10 +1659,13 @@ def main() -> None:
     from repro_torch.core.dist import CollectiveStats
     from repro_torch.core.simmesh import SimMesh
     from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.core import error_feedback
+    from repro_torch.data.synthetic import GaussianClusters
     from repro_torch.kernels import _build, lowrank, ops, quant, ref
     from repro_torch.kernels import ef_apply as ef_kernel
     from repro_torch.launch import train
-    from repro_torch.models import model
+    from repro_torch.models import lstm, model, resnet
+    from repro_torch.optim import schedules
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1465,7 +1718,27 @@ def main() -> None:
     held = [("held slab", s, RANK) for s in param_slabs + leaves + lm_leaves]
     held += [("lm slab, table rank", s, r) for r in TABLE_RANKS for s in lm_slabs]
     totals = kernel_phase(torch, lowrank, ref, slabs, peaks, held=held)
-    lm_slab_phase(torch, lowrank, ref, lm_slabs, peaks)
+    slab_set_phase(torch, lowrank, ref, "lm slabs", lm_slabs, peaks, seed=4)
+    # the paper's models (phase 10) give B1b/B2b their bucket slabs with
+    # PAPER_WORKERS workers folded into B; the LSTM's rows (650 floats) and
+    # ResNet's first convolution's (27) are read as words
+    pm = types.SimpleNamespace(
+        resnet=resnet, lstm=lstm, SimMesh=SimMesh, GaussianClusters=GaussianClusters,
+        MarkovLM=MarkovLM, compressors=compressors, error_feedback=error_feedback,
+        schedules=schedules, train=train, tree=tree, bench=bench)
+    for path, mod, params in (
+            ("resnet18", resnet, resnet.init(resnet.paper_resnet18(), None,
+                                             device="meta")[0]),
+            ("lstm", lstm, lstm.init(lstm.paper_lstm(), None, device="meta"))):
+        paper_slabs = [(PAPER_WORKERS * bk.count, bk.n, bk.m)
+                       for bk in bench.tree_buckets(params, mod.mspecs(params))]
+        rows = slab_set_phase(torch, lowrank, ref, f"{path} slabs", paper_slabs,
+                              peaks, seed=5, rank=PAPER[path][0])
+        words = [r for r in rows if r["vec"] == 1]
+        print(json.dumps({"check": f"{path} slabs read as words", **{
+            r["kernel"] + " " + "x".join(map(str, r["shape"])): {
+                "kernel_graph_ms": r["kernel_graph_ms"], "bound_ms": r["bound_ms"],
+                "bound_share": r["bound_share"]} for r in words}}), flush=True)
     chunk_shape = int4_chunk_shape(torch, cfg, model, matrixize, tree, WORKERS)
     print(f"Top-K int4 chunk (workers x codes): {chunk_shape}")
     # phase 5 packs one worker's codes without a worker dim and unpacks the
@@ -1562,7 +1835,7 @@ def main() -> None:
     if topk != want:
         raise AssertionError(f"top_k launches {topk}, want {want} (one launch "
                              f"per kernel per step)")
-    idle = [k for k, _ in KERNEL_CLASSES if not psgd_classes[k] + topk_classes[k] > 0]
+    idle = [k for k in LLAMA_CLASSES if not psgd_classes[k] + topk_classes[k] > 0]
     if idle:
         raise AssertionError(f"kernel classes {idle} matched no kernel of the "
                              f"profiled steps: their names in KERNEL_CLASSES are stale")
@@ -1577,16 +1850,28 @@ def main() -> None:
 
     # -- 9. the paper's tables ------------------------------------------------
     t_tables = time.perf_counter()
-    table_launches = tables_phase(torch, tables, bench, compressors, model, tree,
-                                  get_config, kernel_mods, cfg, len(lm_buckets))
+    table_launches = tables_phase(torch, tables, bench, compressors, model, lstm,
+                                  tree, get_config, kernel_mods, cfg,
+                                  len(lm_buckets))
     print(f"tables: {time.perf_counter() - t_tables:.1f} s")
+    torch.cuda.empty_cache()
+
+    # -- 10. the paper's own models -------------------------------------------
+    paper_launches = {}
+    for path in PAPER:
+        t_paper = time.perf_counter()
+        paper_parity(torch, pm, path)
+        paper_launches[path] = paper_phase(torch, pm, kernel_mods, path)
+        print(f"paper model {path}: {time.perf_counter() - t_paper:.1f} s")
 
     # launches of each kernel on every path this run drove
     paths = {"llama powersgd": psgd, "llama top_k_int4": topk,
              **{f"dist {k}": v for k, v in dist_launches.items()},
              **{f"llama zoo {k}": v for k, v in zoo_launches.items()},
              **{f"bench_lm {k}": v for k, v in lm_launches.items()},
-             **{f"tables {k}": v for k, v in table_launches.items()}}
+             "table7": table_launches.pop("table7_lstm"),
+             **{f"tables {k}": v for k, v in table_launches.items()},
+             **paper_launches}
     by_path = lambda kernel: {p: v[kernel] for p, v in paths.items() if v[kernel]}
 
     summary = []
@@ -1613,7 +1898,8 @@ def main() -> None:
             "ms": row["kernel_ms"] * per_step,
             "plain_ms": row["plain_ms"] * per_step,
             "bound_ms": row["bound_ms"] * per_step, "bound_by": "bytes",
-            "library_ms": None, "launches_by_path": by_path(name)})
+            "library_ms": None, "copy_floor_ms": row["copy_floor_ms"] * per_step,
+            "launches_by_path": by_path(name)})
     summary.append({
         "name": "ef_apply", "route": "cuda",
         "source": "src/repro_torch/csrc/ef_apply.cu",

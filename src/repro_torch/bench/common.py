@@ -80,16 +80,21 @@ def _make_cfg(spec: LMSpec) -> ModelConfig:
         slots=(LayerSlot("attn", "dense"),))
 
 
-def model_buckets(cfg: ModelConfig):
-    """The shape buckets the bucketed engine plans for ``cfg``'s compressed
-    leaves (each with its ``count``, ``n`` and ``m``), found on the meta
-    device, so it allocates nothing at any width."""
+def tree_buckets(params, specs):
+    """The shape buckets the bucketed engine plans for the compressed leaves
+    of ``params`` (each with its ``count``, ``n`` and ``m``); ``params`` may
+    be meta tensors."""
     shapes = []
-    for p, spec in zip(tree.leaves(model.init(cfg, None, device="meta")),
-                       tree.leaves(model.mspecs(cfg))):
+    for p, spec in zip(tree.leaves(params), tree.leaves(specs)):
         ms = matrixize.matrix_shape(tuple(p.shape), spec)
         shapes.append(None if ms is None else (math.prod(ms[0]), ms[1], ms[2]))
     return matrixize.plan_buckets(shapes).buckets
+
+
+def model_buckets(cfg: ModelConfig):
+    """:func:`tree_buckets` of ``cfg``'s LM, found on the meta device, so it
+    allocates nothing at any width."""
+    return tree_buckets(model.init(cfg, None, device="meta"), model.mspecs(cfg))
 
 
 def payload_floats(params, specs, comp_state):

@@ -6,10 +6,10 @@ each table's rows as JSON (port of the JAX package's ``benchmarks/run.py``).
 
 Prints ``table,key=value,...`` lines and writes ``OUT_DIR/<table>.json``.
 ``--only`` keeps the tables whose names contain one of its comma-separated
-parts; ``--quick`` trains 40 steps instead of the paper's 150.  Runs on the
-CUDA card unless ``--device`` says otherwise.  ``--out`` is required, and
-may not point into ``experiments/benchmarks/``: the JAX package's records
-live there.
+parts; ``--quick`` trains 40 steps instead of the paper's 150 (Table 7:
+120).  Runs on the CUDA card unless ``--device`` says otherwise.  ``--out``
+is required, and may not point into ``experiments/benchmarks/``: the JAX
+package's records live there.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ def _unported(name: str, item: str):
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
-                    help="40 training steps instead of 150")
+                    help="40 training steps instead of 150 (Table 7: 120)")
     ap.add_argument("--only", default=None,
                     help="comma-separated parts of table names (e.g. table1,fig3)")
     ap.add_argument("--out", required=True, help="directory for the JSON rows")
@@ -73,7 +73,8 @@ def main(argv=None) -> None:
             params_small, specs_small, device=dev),
         "table6_other_methods": lambda: tables.table6_other_methods(
             spec, device=dev),
-        "table7_lstm": _unported("table7_lstm", "15"),
+        "table7_lstm": lambda: tables.table7_lstm(40 if args.quick else 120,
+                                                  device=dev),
         "fig3_scaling": lambda: tables.fig3_scaling(params_small, specs_small,
                                                     device=dev),
         **{name: _unported(name, "18") for name in (

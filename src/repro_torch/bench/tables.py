@@ -1,10 +1,11 @@
-"""One driver per paper table and figure on the benchmark LM (port of
-Tables 1–6, Fig. 3 and Appendix D of the JAX package's
-``benchmarks/tables.py``).
+"""One driver per paper table and figure (port of Tables 1–7, Fig. 3 and
+Appendix D of the JAX package's ``benchmarks/tables.py``): the benchmark
+LM, and for Table 7 the paper's LSTM scaled down.
 
 Each driver returns a list of row dicts with the JAX package's keys, in
 its order.  The training drivers take an :class:`~repro_torch.bench.common.
-LMSpec`; Table 5 and Fig. 3 take a parameter tree and its matrix specs.
+LMSpec` (Table 7 its number of steps); Table 5 and Fig. 3 take a parameter
+tree and its matrix specs.
 Every driver runs on the CUDA card unless ``device`` says otherwise.
 
     from repro_torch.bench import tables
@@ -21,6 +22,8 @@ LM at lr 0.1), as in the JAX package.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -29,12 +32,17 @@ from repro_torch.bench.common import (Q_CHUNK, LMSpec, _make_cfg, _to,
                                       bytes_per_epoch_mb, comm_time, eval_loss,
                                       eval_set, lm_data, measure_coding_time,
                                       probe_bits, train_lm)
+from repro_torch.core import error_feedback
 from repro_torch.core.compressors import make_compressor
-from repro_torch.launch.train import local_grads, resolve_device
-from repro_torch.models import model
+from repro_torch.data.synthetic import MarkovLM
+from repro_torch.launch.train import grad_with_aux, local_grads, resolve_device
+from repro_torch.models import lstm, model
 from repro_torch.optim import sgd
 
 STEPS_PER_EPOCH = 40  # epoch definition for the synthetic task
+# Table 7's LSTM: the paper's, scaled down (tied embeddings need embed == hidden)
+TABLE7_CFG = lstm.LSTMConfig(vocab=256, embed=64, hidden=64, layers=3,
+                             init_scale=0.15)
 
 
 def _fmt(result, rank=None, backend="nccl_10gbit", workers=16):
@@ -162,6 +170,51 @@ def _signum_row(spec: LMSpec, *, device=None, params=None) -> dict:
         "allreduce": False,
         "modeled_comm_ms_w16": round(comm_time(bits / 8, 16, False) * 1e3, 3),
     }
+
+
+def table7_lstm(spec_steps: int = 120, *, device=None) -> list:
+    """Table 7: language modeling with the paper's LSTM, scaled down (vocab
+    256, embedding and hidden 64, 3 layers) on order-1 Markov data with 8
+    token clusters: one worker, 16 sequences of 48 tokens a step, lr 1.0,
+    momentum 0.9, for identity and PowerSGD at ranks 1 and 4.  Each run
+    starts from parameters and factors drawn on the CPU from seed 0; the
+    perplexity is that of 6 held-out batches of 32."""
+    dev = resolve_device(device)
+    cfg = TABLE7_CFG
+    data = MarkovLM(vocab=cfg.vocab, seed=0, order=1, clusters=8)
+    grad = grad_with_aux(lstm.loss_fn)
+
+    def run(comp_name, rank):
+        gen = torch.Generator().manual_seed(0)
+        params = lstm.init(cfg, gen, device="cpu")
+        specs = lstm.mspecs(params)
+        comp = make_compressor(comp_name, rank=rank)
+        state = error_feedback.init_state(comp, params, specs,
+                                          generator=gen).to(dev)
+        params = _to(params, dev)
+        it = data.batches(16, 48)
+        for _ in range(spec_steps):
+            batch = {k: torch.tensor(v, device=dev) for k, v in next(it).items()}
+            grads, _ = grad(params, batch, cfg)
+            params, state, aux = error_feedback.apply_updates(
+                comp, params, grads, state, specs, lr=1.0, momentum=0.9, seed=0)
+        evs = []
+        with torch.no_grad():
+            for i in range(6):
+                b = torch.tensor(data.sample(32, 48, step=20_000 + i), device=dev)
+                _, met = lstm.loss_fn(params, {"tokens": b[:, :-1],
+                                               "labels": b[:, 1:]}, cfg)
+                evs.append(met["loss"].item())
+        ev = float(np.mean(evs))
+        return {
+            "algorithm": comp_name + (f"_rank{rank}" if comp_name != "identity"
+                                      else ""),
+            "eval_ppl": round(math.exp(ev), 2),
+            "data_per_epoch_mb": round(
+                bytes_per_epoch_mb(aux["bits_per_worker"], STEPS_PER_EPOCH), 3),
+        }
+
+    return [run("identity", 2), run("powersgd", 1), run("powersgd", 4)]
 
 
 def fig3_scaling(params, specs, *, device=None) -> list:

@@ -2,7 +2,11 @@
 ``repro.configs.base``, the fields the dense training path reads).
 
 Only the dense attention + SwiGLU architecture is ported (``llama3_8b``);
-the other registered architectures wait for ROADMAP queue A, item 15.
+the other registered architectures wait for the second half of ROADMAP
+queue A, item 15.  Its first half brought the paper's own models, which
+carry their configurations in their modules (``ResNetConfig`` in
+:mod:`repro_torch.models.resnet`, ``LSTMConfig`` in
+:mod:`repro_torch.models.lstm`), as the JAX package's do.
 """
 
 from __future__ import annotations

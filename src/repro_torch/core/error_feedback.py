@@ -44,6 +44,14 @@ class EFState:
     comp: Any        # compressor state (PowerSGD Q factors; None if stateless)
     step: int = 0
 
+    def to(self, device) -> "EFState":
+        """A copy of this state on ``device``."""
+        move = lambda t: tree.map(
+            lambda x: None if x is None else x.to(device, copy=True), t)
+        return dataclasses.replace(self, error=move(self.error),
+                                   momentum=move(self.momentum),
+                                   comp=move(self.comp))
+
 
 def init_state(compressor: Compressor, params, specs, *, lead=(),
                generator: Optional[torch.Generator] = None) -> EFState:

@@ -7,12 +7,19 @@ used ``vmap``, and ``MeshCtx`` collectives are exact means over it (see
 :class:`repro_torch.core.dist.SimBackend`).  Values every worker holds
 identically after an all-reduce (parameters, momentum, warm-start factors)
 are held once.
+
+:meth:`SimMesh.run` is the counterpart of the reference's ``SimMesh.run``
+with one difference: the reference ``vmap``s the whole step, collectives
+included, while here the mapped function is worker-local (a gradient, a
+forward with its BatchNorm state) and runs once per worker; the
+error-feedback step then runs once over the stacked results under
+:meth:`SimMesh.ctx`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 
@@ -33,6 +40,39 @@ class SimMesh:
         """A :class:`MeshCtx` whose data axis is the stacked worker dim."""
         return MeshCtx(data_axes=(self.axis,), stats=stats,
                        backend=SimBackend(workers=self.workers))
+
+    def run(self, fn: Callable, in_axes: Union[int, None, Sequence] = 0
+            ) -> Callable:
+        """``fn`` mapped over the workers: ``run(fn, in_axes)(*args)`` calls
+        ``fn`` once per worker ``w`` on ``args`` with every mapped argument
+        (``in_axes`` entry 0) cut to its slice ``[w]`` and every shared one
+        (``None``) whole, and stacks the W results on a new leading dim.
+
+        Arguments and results may be tensors, or dicts, tuples and lists of
+        them (``None`` passes through).  Each result is copied into its
+        stacked buffer before the next worker runs, so one worker's
+        temporaries (its autograd graph) are freed before the next is
+        built.  No collective may run inside ``fn``: it is worker-local.
+        """
+        def mapped(*args):
+            axes = (tuple(in_axes) if isinstance(in_axes, (tuple, list))
+                    else (in_axes,) * len(args))
+            if len(axes) != len(args) or any(a not in (0, None) for a in axes):
+                raise ValueError(f"in_axes {in_axes!r} must give 0 or None for "
+                                 f"each of the {len(args)} arguments")
+            out = None
+            for w in range(self.workers):
+                res = fn(*(a if ax is None
+                           else tree.map_nest(lambda x: x[w], a)
+                           for a, ax in zip(args, axes)))
+                if out is None:
+                    out = tree.map_nest(lambda x: torch.empty(
+                        (self.workers,) + tuple(x.shape), dtype=x.dtype,
+                        device=x.device), res)
+                tree.map_nest(lambda buf, x: buf[w].copy_(x), out, res)
+                del res
+            return out
+        return mapped
 
     def replicate(self, t):
         """W copies of every leaf: shape → (W,) + shape (a read-only

@@ -55,10 +55,14 @@
 //   (backproject keeps 32 lanes to a row for such rows unless the slab is
 //   small).  At the large slabs, measured on an H100, that costs project a
 //   few per cent of rate against the float4 path and backproject up to a
-//   fifth; no main path has such rows.  A realigning float4 load (the
-//   aligned float4 holding a lane's first column plus the next lane's,
-//   shuffled, selected by the row's shift) measured slower than words at
-//   every shape tried.
+//   fifth.  The paper's LSTM has such rows (m = 650): at its two slabs with
+//   16 workers folded into B, (16, 28869, 650) and (96, 2600, 650) at rank
+//   4, project reads at 76 % and 74 % of the bytes bound and backproject at
+//   63 % and 64 %; ResNet-18's first convolution (m = 27) is launch-bound
+//   (chip_smoke.py phase 2, H100 80GB HBM3 at 700 W).  A realigning float4
+//   load (the aligned float4 holding a lane's first column plus the next
+//   lane's, shuffled, selected by the row's shift) measured slower than
+//   words at every shape tried.
 // * The launch plan (vector width, tile, warps to a row or lanes to a row,
 //   cluster size, reduced extent per rank, window) is computed by the
 //   wrapper (src/repro_torch/kernels/lowrank.py) as a pure function of the

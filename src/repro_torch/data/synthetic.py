@@ -1,11 +1,14 @@
-"""Deterministic synthetic LM data: a copy of ``repro.data.synthetic.MarkovLM``
-(numpy only), so the port and the JAX package draw identical batches from
-the same seed."""
+"""Deterministic synthetic data: copies of ``MarkovLM``, ``GaussianClusters``
+and ``shard_batch`` of ``repro.data.synthetic`` (numpy only), so the port
+and the JAX package draw identical batches from the same seed.
+
+They stand in for the paper's datasets at their input shapes: ``MarkovLM``
+token streams for WikiText-2, ``GaussianClusters`` images for CIFAR-10."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator
+from typing import Dict, Iterator
 
 import numpy as np
 
@@ -64,3 +67,52 @@ class MarkovLM:
             toks = self.sample(batch, seq, step)
             yield {"tokens": toks[:, :-1], "labels": toks[:, 1:].copy()}
             step += 1
+
+
+@dataclasses.dataclass
+class GaussianClusters:
+    """k-class Gaussian blobs rendered as ``(H, W, C)`` images (for the
+    ResNet): each image is its class's fixed center plus ``noise`` times
+    standard normal noise."""
+
+    num_classes: int = 10
+    image_size: int = 16
+    channels: int = 3
+    seed: int = 0
+    noise: float = 0.8
+
+    def __post_init__(self):
+        rng = np.random.RandomState(self.seed)
+        d = self.image_size * self.image_size * self.channels
+        self._centers = rng.randn(self.num_classes, d).astype(np.float32)
+
+    def sample(self, batch: int, step: int) -> Dict[str, np.ndarray]:
+        """Batch ``step`` of the stream: ``images`` ``(batch, H, W, C)``
+        float32 and ``labels`` ``(batch,)`` int32."""
+        rng = np.random.RandomState((self.seed * 7_368_787 + step) % 2**31)
+        labels = rng.randint(0, self.num_classes, size=batch)
+        d = self._centers.shape[1]
+        x = self._centers[labels] + self.noise * rng.randn(batch, d).astype(np.float32)
+        images = x.reshape(batch, self.image_size, self.image_size, self.channels)
+        return {"images": images, "labels": labels.astype(np.int32)}
+
+    def batches(self, batch: int) -> Iterator[Dict[str, np.ndarray]]:
+        """Endless stream of :meth:`sample` batches, step 0 first."""
+        step = 0
+        while True:
+            yield self.sample(batch, step)
+            step += 1
+
+
+def shard_batch(batch: dict, worker: int, num_workers: int) -> dict:
+    """This worker's slice of a global batch: rows ``worker·b`` to
+    ``(worker + 1)·b`` of every leaf, with ``b = n / num_workers``."""
+    out = {}
+    for k, v in batch.items():
+        n = v.shape[0]
+        if n % num_workers:
+            raise ValueError(f"{k}: batch {n} does not split over "
+                             f"{num_workers} workers")
+        per = n // num_workers
+        out[k] = v[worker * per:(worker + 1) * per]
+    return out

@@ -17,7 +17,7 @@ item 10; the model axis (tensor parallelism) for ROADMAP queue A, item 14.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -27,6 +27,7 @@ from repro_torch.core import error_feedback
 from repro_torch.core.compressors import Compressor, PowerSGDCompressor
 from repro_torch.core.dist import DistBackend, MeshCtx
 from repro_torch.core.error_feedback import EFState
+from repro_torch.core.simmesh import SimMesh
 from repro_torch.models import model
 from repro_torch.optim import schedules
 
@@ -57,33 +58,39 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def grad_with_aux(loss_fn: Callable) -> Callable:
+    """The twin of ``jax.grad(loss_fn, has_aux=True)``: for
+    ``loss_fn(params, *args, **kw)`` → ``(loss, aux)``, a function of the
+    same arguments returning ``(grads, aux)``, ``grads`` a tree like
+    ``params`` of the loss's gradient with respect to every leaf and
+    ``aux`` with its tensors detached."""
+    def grad(params, *args, **kw):
+        live = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
+        loss, aux = loss_fn(tree.unflatten(params, live), *args, **kw)
+        grads = torch.autograd.grad(loss, live)
+        return (tree.unflatten(params, list(grads)),
+                tree.map_nest(lambda x: x.detach(), aux))
+    return grad
+
+
 def local_grads(cfg: ModelConfig, params, shard, *, q_chunk: int, device):
     """The gradient of one worker's loss on its batch ``shard`` (``(b, S)``
     leaves): a list of gradients in ``tree.leaves(params)`` order, and the
     worker's ``lm_loss``."""
-    live = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
     shard = {k: v.to(device) for k, v in shard.items()}
-    loss, metrics = model.loss_fn(tree.unflatten(params, live), shard, cfg,
-                                  q_chunk=q_chunk)
-    return list(torch.autograd.grad(loss, live)), metrics["lm_loss"].detach()
+    grads, metrics = grad_with_aux(model.loss_fn)(params, shard, cfg,
+                                                  q_chunk=q_chunk)
+    return tree.leaves(grads), metrics["lm_loss"]
 
 
 def worker_grads(cfg: ModelConfig, params, batch, workers: int, *,
                  q_chunk: int, device):
     """Each simulated worker's gradient on its own shard of ``batch``
     (``(W, b, S)`` leaves): a tree like ``params`` of ``(W,) + shape``
-    gradients, and the list of the W worker losses."""
-    grads = [torch.empty((workers,) + tuple(p.shape), device=p.device,
-                         dtype=p.dtype) for p in tree.leaves(params)]
-    losses = []
-    for i in range(workers):
-        local, loss = local_grads(cfg, params,
-                                  {k: v[i] for k, v in batch.items()},
-                                  q_chunk=q_chunk, device=device)
-        for buf, g in zip(grads, local):
-            buf[i].copy_(g)
-        losses.append(loss)
-        del local   # free this worker's gradients before the next backward
+    gradients, and the ``(W,)`` worker losses."""
+    grads, losses = SimMesh(workers).run(
+        lambda shard: local_grads(cfg, params, shard, q_chunk=q_chunk,
+                                  device=device))(batch)
     return tree.unflatten(params, grads), losses
 
 
@@ -193,7 +200,7 @@ def make_sim_train_step(cfg: ModelConfig, sim, hyper: TrainHyper,
     def grads_fn(params, batch):
         grads, losses = worker_grads(cfg, params, batch, w,
                                      q_chunk=hyper.q_chunk, device=dev)
-        return grads, torch.stack(losses).mean()
+        return grads, losses.mean()
 
     return _make_step(cfg, hyper, compressor, sim.ctx(stats=stats), grads_fn,
                       dev)

@@ -1,7 +1,11 @@
 """Language model: embedding → block stack → final norm → head, and the
 training loss (port of ``init``, ``mspecs`` and ``loss_fn`` of
-``repro.models.model``; decode and prefill wait for ROADMAP queue A,
-item 15)."""
+``repro.models.model``).
+
+The paper's own models are ported beside it (ROADMAP queue A, item 15,
+first half): :mod:`repro_torch.models.resnet` and
+:mod:`repro_torch.models.lstm`.  Decode and prefill, MoE and Mamba-2 wait
+for the second half of item 15."""
 
 from __future__ import annotations
 

@@ -47,3 +47,15 @@ def map(fn: Callable, tree: Any, *rest: Any) -> Any:  # noqa: A001
     if isinstance(tree, dict):
         return {k: map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
     return fn(tree, *rest)
+
+
+def map_nest(fn: Callable, t: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of a nest of dicts, tuples and lists whose
+    leaves are tensors, aligned with ``rest``; ``None`` passes through."""
+    if isinstance(t, dict):
+        return {k: map_nest(fn, t[k], *(r[k] for r in rest)) for k in t}
+    if isinstance(t, (tuple, list)):
+        return type(t)(map_nest(fn, *xs) for xs in zip(t, *rest))
+    if t is None:
+        return None
+    return fn(t, *rest)

@@ -8,7 +8,9 @@ point (``repro_torch.bench.run``) and the α-β helpers of
 * Tables 1, 2, 3, 4, 6 and Appendix D with training stubbed in both
   packages by one fake: the same ``make_compressor``/``train_lm``/
   ``_signum_row`` calls in the same order, and rows equal, keys and order
-  included.
+  included.  Table 7 likewise, its fake standing in for the LSTM's
+  ``init``/``loss_fn``, error feedback and ``make_compressor``, its loss a
+  function of each batch's labels.
 * ``bits_per_worker_per_step`` of every (scheme, rank) the drivers train,
   from one probe step at the benchmark LM's shapes, equal to the
   reference's.
@@ -22,9 +24,10 @@ point (``repro_torch.bench.run``) and the α-β helpers of
 * Table 3 end to end on the port (2 steps, no stubs): the modeled columns
   equal the reference's ``_fmt`` of the reference's bits; losses finite.
 * ``bench/run.py``: ``--out`` required and kept out of
-  ``experiments/benchmarks/``; ``--only`` matches parts of names; the
-  unported tables raise naming their ROADMAP item; every driver and the
-  entry point default to the CUDA card and raise where there is none.
+  ``experiments/benchmarks/``; ``--only`` matches parts of names; Table 7
+  trains 120 steps, 40 under ``--quick``; the unported tables raise naming
+  their ROADMAP item; every driver and the entry point default to the CUDA
+  card and raise where there is none.
 """
 
 import functools
@@ -42,15 +45,18 @@ import pytest
 import torch
 
 from repro.core import compressors as jcomp
+from repro.core import error_feedback as jef
 from repro.core import matrixize as jmz
+from repro.models import lstm as jlstm
 from repro.models import model as jmodel
 from repro_torch import bridge
 from repro_torch.bench import common as bench
 from repro_torch.bench import run, tables
 from repro_torch.configs.base import get_config
+from repro_torch.core import error_feedback
 from repro_torch.core import matrixize as mz
 from repro_torch.core.compressors import make_compressor
-from repro_torch.models import model
+from repro_torch.models import lstm, model
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 RECORDS = ROOT / "experiments" / "benchmarks"
@@ -181,6 +187,77 @@ def test_every_trained_scheme_is_listed(monkeypatch):
         getattr(tables, driver)(bench.LMSpec(steps=1), device="cpu")
     trained = {(n, r) for kind, n, r, _ in fake.calls if kind == "train_lm"}
     assert trained == set(TRAINED)
+
+
+# ---------------------------------------------------------------------------
+# Table 7, training stubbed
+# ---------------------------------------------------------------------------
+
+class FakeLSTMTraining:
+    """Stands in, in one package, for the LSTM's ``init`` and ``loss_fn``,
+    error feedback's ``init_state`` and ``apply_updates`` and
+    ``make_compressor``: records each call, returns a loss that is a function
+    of the batch's labels alone (their sum mod 997, over 100) and bits that
+    depend on the scheme and rank alone."""
+
+    def __init__(self, xp):
+        self.xp = xp                      # jnp or torch
+        self.calls = []
+
+    def make_compressor(self, name, rank=None, **kw):
+        assert not kw
+        self.calls.append(("make_compressor", name, rank))
+        return ("compressor", name, rank)
+
+    def init(self, *args, **kw):
+        cfg = next(a for a in args if isinstance(a, (jlstm.LSTMConfig,
+                                                     lstm.LSTMConfig)))
+        self.calls.append(("init", cfg.vocab, cfg.embed, cfg.hidden, cfg.layers,
+                           cfg.init_scale))
+        return {"decoder_b": self.xp.zeros((3,))}
+
+    def loss_fn(self, params, batch, cfg):
+        labels = batch["labels"]
+        loss = (labels.sum() % 997) / 100.0 + 0.0 * params["decoder_b"].sum()
+        if not isinstance(labels, jax.core.Tracer):
+            self.calls.append(("loss_fn", tuple(labels.shape)))
+        return loss, {"loss": loss}
+
+    def init_state(self, comp, params, specs, *args, **kw):
+        self.calls.append(("init_state", comp))
+        return error_feedback.EFState(error={}, momentum={}, comp=None)
+
+    def apply_updates(self, comp, params, grads, state, specs, *, lr, momentum,
+                      **kw):
+        self.calls.append(("apply_updates", comp, lr, momentum))
+        _, name, rank = comp
+        bits = 32 * (5000 + 13 * len(name)) * (rank or 1)
+        return params, state, {"bits_per_worker": bits}
+
+    def install(self, monkeypatch, mod, model, ef):
+        monkeypatch.setattr(mod, "make_compressor", self.make_compressor)
+        monkeypatch.setattr(model, "init", self.init)
+        monkeypatch.setattr(model, "loss_fn", self.loss_fn)
+        monkeypatch.setattr(ef, "init_state", self.init_state)
+        monkeypatch.setattr(ef, "apply_updates", self.apply_updates)
+
+
+def test_table7_calls_and_rows_equal_reference(monkeypatch):
+    want_fake, got_fake = FakeLSTMTraining(jnp), FakeLSTMTraining(torch)
+    want_fake.install(monkeypatch, jtables, jlstm, jef)
+    got_fake.install(monkeypatch, tables, lstm, error_feedback)
+    want = jtables.table7_lstm(5)
+    got = tables.table7_lstm(5, device="cpu")
+    assert _items(got) == _items(want)
+    # the reference traces its loss once per run under jit; the port calls
+    # it every step: compare the calls of each kind apart
+    for kind in ("make_compressor", "init", "init_state", "apply_updates"):
+        assert ([c for c in got_fake.calls if c[0] == kind]
+                == [c for c in want_fake.calls if c[0] == kind]), kind
+    assert [c for c in want_fake.calls if c[0] == "loss_fn"] == (
+        [("loss_fn", (32, 48))] * 18)
+    assert [c for c in got_fake.calls if c[0] == "loss_fn"] == (
+        [("loss_fn", (16, 48))] * 5 + [("loss_fn", (32, 48))] * 6) * 3
 
 
 # ---------------------------------------------------------------------------
@@ -353,7 +430,7 @@ def test_run_refuses_out(argv, capsys):
     assert not (RECORDS / "port").exists()
 
 
-@pytest.mark.parametrize("only,item", [("table7", "item 15"),
+@pytest.mark.parametrize("only,item", [("resume_overhead", "item 18"),
                                        ("comm_profile", "item 18"),
                                        ("overlap", "item 18")])
 def test_run_unported_tables_raise(only, item, tmp_path):
@@ -363,9 +440,26 @@ def test_run_unported_tables_raise(only, item, tmp_path):
     assert _records_digest() == before
 
 
+@pytest.mark.parametrize("quick,steps", [(True, 40), (False, 120)])
+def test_run_trains_table7_at_its_steps(quick, steps, tmp_path, monkeypatch):
+    calls = []
+    rows = [{"algorithm": "identity", "eval_ppl": 1.5, "data_per_epoch_mb": 2.0}]
+
+    def fake(spec_steps, *, device):
+        calls.append((spec_steps, device.type))
+        return rows
+
+    monkeypatch.setattr(tables, "table7_lstm", fake)
+    run.main(["--only", "table7", "--device", "cpu", "--out", str(tmp_path)]
+             + (["--quick"] if quick else []))
+    assert calls == [(steps, "cpu")]
+    assert json.loads((tmp_path / "table7_lstm.json").read_text()) == rows
+
+
 DEFAULT_DEVICE_CALLS = {
     **{d: lambda fn: fn(bench.LMSpec(steps=1)) for d in DRIVERS},
     "_signum_row": lambda fn: fn(bench.LMSpec(steps=1)),
+    "table7_lstm": lambda fn: fn(1),
     **{d: lambda fn: fn(_small_tree()[1][0], _small_tree()[1][1])
        for d in ("table5_time_breakdown", "fig3_scaling")},
 }
