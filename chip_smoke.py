@@ -93,6 +93,16 @@ Phases, in order; any failure raises and the script exits non-zero:
               then 5 EF-PowerSGD steps with 16 simulated workers, launches
               counted (B1b and B2b once per bucket per step), step time
               and peak memory, and one more step profiled.
+11. weighted — scenario weights, one per simulated worker (``WEIGHTS_*``):
+              reduced Llama-3-8B at W = 4 card against CPU under phase 3's
+              rules, then a dropped worker's batch without effect on
+              parameters and momentum (bit for bit) and an all-dropped
+              round with a zero aggregate; the full width of phase 6 under
+              token-count weights, all-ones weights against the unweighted
+              step, and Top-K/int4 with a dropped worker, launches and
+              collective records as unweighted, step time and peak memory
+              beside phases 6 and 7's; ResNet-18 at W = 16 with a short
+              batch and a straggler, step time beside phase 10's.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after; the summary line gives each kernel's launches on every
@@ -608,14 +618,17 @@ def ef_apply_ragged(torch, ops, ef_kernel, ref):
     return err
 
 
-def parity_phase(torch, mods, name, make_compressor, check):
-    """Reduced Llama-3-8B, 3 steps, 2 workers: the card (kernels) against the
-    CPU (plain versions), from identical parameters and compressor state.
-    ``check(losses_cpu, losses_card, params_cpu, params_card)`` raises on
-    disagreement."""
+def parity_phase(torch, mods, name, make_compressor, check, workers=2,
+                 weights=None):
+    """Reduced Llama-3-8B, 3 steps, ``workers`` workers (2 sequences each)
+    under the scenario ``weights`` (``None``: uniform): the card (kernels)
+    against the CPU (plain versions), from identical parameters and
+    compressor state.  ``check(losses_cpu, losses_card, params_cpu,
+    params_card)`` raises on disagreement.  Returns the card's step, its
+    state after the 3 steps, the mesh and the data stream."""
     train, llama3_8b, SimMesh, MarkovLM, tree = mods
     cfg = llama3_8b.reduced_config()
-    sim = SimMesh(2)
+    sim = SimMesh(workers)
     hyper = train.TrainHyper(q_chunk=64, warmup_steps=2)
     _, init = train.make_sim_train_step(cfg, sim, hyper, device="cpu",
                                         compressor=make_compressor())
@@ -628,13 +641,14 @@ def parity_phase(torch, mods, name, make_compressor, check):
         data = MarkovLM(vocab=cfg.vocab_size, seed=0, order=1)
         losses = []
         for i in range(3):
-            toks = torch.tensor(data.sample(4, 128, step=i), device=dev)
+            toks = torch.tensor(data.sample(2 * workers, 128, step=i), device=dev)
             batch = sim.shard({"tokens": toks[:, :-1], "labels": toks[:, 1:]})
-            params, ef, metrics = step(params, ef, batch)
+            params, ef, metrics = step(params, ef, batch, weights=weights)
             losses.append(metrics["lm_loss"].item())
         runs[dev] = (losses, tree.map(lambda x: x.cpu(), params))
     (l_cpu, p_cpu), (l_gpu, p_gpu) = runs["cpu"], runs["cuda"]
     check(name, l_cpu, l_gpu, tree.leaves(p_cpu), tree.leaves(p_gpu))
+    return step, params, ef, sim, data
 
 
 def check_powersgd_parity(name, l_cpu, l_gpu, p_cpu, p_gpu, loss_rtol=1e-4,
@@ -753,8 +767,8 @@ def train_phase(torch, mods, kernel_mods, cfg, path, compressor, stats=None,
                 per_step_check=None):
     """TRAIN_STEPS steps of the full-width model on one path, with every
     launch count set to 0 just before and read just after; then one more
-    step profiled.  Returns the launch counts and the profiled step's device
-    ms by kernel class."""
+    step profiled.  Returns the launch counts, the profiled step's device
+    ms by kernel class, and the median step ms and peak GiB."""
     train, tree, SimMesh, MarkovLM = mods
     sim = SimMesh(WORKERS)
     step, init = train.make_sim_train_step(cfg, sim, train.TrainHyper(),
@@ -790,8 +804,8 @@ def train_phase(torch, mods, kernel_mods, cfg, path, compressor, stats=None,
         if per_step_check is not None:
             per_step_check(stats)
     launches = read_all_launches(kernel_mods)
-    print(f"{path} max_memory_allocated: "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{path} max_memory_allocated: {peak:.2f} GiB")
     print(f"{path} launches: {launches}")
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"{path}: non-finite loss: {losses}")
@@ -806,7 +820,8 @@ def train_phase(torch, mods, kernel_mods, cfg, path, compressor, stats=None,
         stats.reset()
     classes = profile_phase(torch, path, lambda: step(params, ef, batches[0]),
                             statistics.median(step_ms))
-    return launches, classes
+    return launches, classes, {"median_step_ms": statistics.median(step_ms),
+                               "peak_gib": peak}
 
 
 LM_BUDGETS = {"identity": (1, 1, 0), "powersgd": (2, 2, 0), "top_k": (3, 1, 2)}
@@ -1492,8 +1507,11 @@ class PaperTrainer:
                                        for k, v in b.items()}))
         return out
 
-    def step(self, st, batch):
-        """One step; updates ``st`` and returns the worker-mean loss."""
+    def step(self, st, batch, weights=None):
+        """One step under the scenario ``weights`` (``None``: uniform; host
+        values, checked before any work is queued); updates ``st`` and
+        returns the workers' loss, averaged as the aggregates are."""
+        ctx = self.sim.ctx(weights=weights, device=self.device)
         if self.path == "resnet18":
             grads, (st["bn"], met) = self.grad(st["params"], st["bn"], batch,
                                                self.cfg)
@@ -1505,8 +1523,8 @@ class PaperTrainer:
             lr, wd = 1.0, 0.0
         st["params"], st["ef"], _ = self.pm.error_feedback.apply_updates(
             self.comp, st["params"], grads, st["ef"], self.specs, lr=lr,
-            momentum=0.9, weight_decay=wd, ctx=self.sim.ctx())
-        return met["loss"].mean()
+            momentum=0.9, weight_decay=wd, ctx=ctx)
+        return ctx.backend.pmean(met["loss"])
 
 
 def paper_parity(torch, pm, path):
@@ -1533,7 +1551,8 @@ def paper_phase(torch, pm, kernel_mods, path):
     """One paper model on its main path: PAPER_STEPS steps at full width on
     PAPER_WORKERS workers, every launch count set to 0 just before and read
     just after; B1b and B2b must launch once per bucket per step and no
-    other kernel at all.  Then one step profiled.  Returns the launches."""
+    other kernel at all.  Then one step profiled.  Returns the launches and
+    the median step ms."""
     rank, per_worker, _ = PAPER[path]
     t0 = time.perf_counter()
     tr = PaperTrainer(torch, pm, path, PAPER_WORKERS, "cuda")
@@ -1585,6 +1604,243 @@ def paper_phase(torch, pm, kernel_mods, path):
     if path == "resnet18" and not classes["conv"] > 0:
         raise AssertionError("resnet18: no profiled kernel matched the conv class: "
                              "its names in KERNEL_CLASSES are stale")
+    del tr, st, batches
+    torch.cuda.empty_cache()
+    return launches, statistics.median(step_ms)
+
+
+# Weighted workers (phase 11): one scenario weight per simulated worker
+# (heterogeneous batches: a worker's valid-token count; dropout and
+# stragglers skipped this round: 0), every aggregate Σ wᵢxᵢ / Σ wᵢ, through
+# ``step_fn(..., weights=...)`` and ``SimMesh.ctx(weights=...)``.
+# (a) Reduced Llama-3-8B at W = 4 under WEIGHTS_SMALL, card against CPU
+# under phase 3's rules; from the card's state, worker 1's batch redrawn
+# must leave parameters, momentum and the other workers' error buffers
+# bit-equal and move worker 1's own, and an all-dropped round must give a
+# zero aggregate (momentum only decays, bit for bit; the loss metric 0).
+# (b) Phase 6's full width at W = 2: PowerSGD under WEIGHTS_TOKENS,
+# PowerSGD under all-ones weights against the unweighted step from the same
+# initial state (phase 3's rule), Top-K/int4 under WEIGHTS_DROPPED; launches
+# and collective records as the unweighted steps'.  (c) Phase 10's
+# ResNet-18 at W = 16 under WEIGHTS_RESNET.
+WEIGHTED_STEPS = 3
+WEIGHTS_SMALL = (1.0, 0.0, 2.0, 0.5)
+WEIGHTS_TOKENS = (3.0, 1.0)                    # valid-token counts, 3 : 1
+WEIGHTS_DROPPED = (1.0, 0.0)                   # worker 1 dropped
+WEIGHTS_RESNET = (64.0, 0.0) + (128.0,) * 14   # a short batch, a straggler
+
+
+def collective_records(stats):
+    """One step's ``CollectiveStats`` records: kinds, sizes, itemsizes,
+    fanouts and sidecar overheads."""
+    return (list(stats.kinds), list(stats.sizes), list(stats.itemsizes),
+            list(stats.fanouts), list(stats.overheads))
+
+
+def trees_equal(torch, tree, a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(tree.leaves(a), tree.leaves(b)))
+
+
+def all_finite(torch, tree, *trees) -> bool:
+    return all(bool(torch.isfinite(x).all()) for t in trees
+               for x in tree.leaves(t) if x is not None)
+
+
+def weighted_small_phase(torch, pmods, compressors):
+    """(a): reduced Llama-3-8B at W = 4, card against CPU under weights,
+    then the weight-0 and all-dropped checks on the card."""
+    tree = pmods[4]
+    paths = {
+        "powersgd": (lambda: compressors.make_compressor("powersgd", rank=RANK),
+                     check_powersgd_parity),
+        "top_k_int4": (lambda: compressors.make_compressor(
+            "top_k", rank=RANK, wire_dtype="int4"), check_topk_parity)}
+    for path, (make, check) in paths.items():
+        step, params, ef, sim, data = parity_phase(
+            torch, pmods, f"weighted {path} (W=4, weights {WEIGHTS_SMALL})",
+            make, check, workers=4, weights=WEIGHTS_SMALL)
+        toks = torch.tensor(data.sample(8, 128, step=3), device="cuda")
+        redrawn = toks.clone()
+        redrawn[2:4] = torch.tensor(data.sample(8, 128, step=4)[2:4],
+                                    device="cuda")     # worker 1's 2 sequences
+        shard = lambda t: sim.shard({"tokens": t[:, :-1], "labels": t[:, 1:]})
+        outs = []
+        for t in (toks, redrawn):
+            p, e = tree.map(torch.clone, params), ef.to("cuda")
+            p, e, m = step(p, e, shard(t), weights=WEIGHTS_SMALL)
+            outs.append((p, e, m["lm_loss"]))
+        (p_a, e_a, l_a), (p_b, e_b, l_b) = outs
+        errors = list(zip(tree.leaves(e_a.error), tree.leaves(e_b.error)))
+        keep = [0, 2, 3]
+        held = {"params": trees_equal(torch, tree, p_a, p_b),
+                "momentum": trees_equal(torch, tree, e_a.momentum, e_b.momentum),
+                "lm_loss": bool(torch.equal(l_a, l_b)),
+                "other_errors": all(torch.equal(a[keep], b[keep])
+                                    for a, b in errors),
+                "worker1_error_moved": any(not torch.equal(a[1], b[1])
+                                           for a, b in errors)}
+        del outs, p_a, e_a, p_b, e_b, errors
+        # the all-dropped round: a zero aggregate, so m ← λm exactly
+        p, e = tree.map(torch.clone, params), ef.to("cuda")
+        decayed = tree.map(lambda m: m.clone().mul_(0.9), e.momentum)
+        p, e, m = step(p, e, shard(toks), weights=(0.0,) * 4)
+        held.update({
+            "dropped_round_momentum_decays": trees_equal(torch, tree, e.momentum,
+                                                         decayed),
+            "dropped_round_loss_zero": m["lm_loss"].item() == 0.0,
+            "dropped_round_finite": all_finite(torch, tree, p, e.error,
+                                               e.momentum, e.comp)})
+        print(json.dumps({"check": "weight-0 worker and all-dropped round",
+                          "path": path, "weights": WEIGHTS_SMALL, **held}),
+              flush=True)
+        if not all(held.values()):
+            raise AssertionError(f"weighted {path}: {held}")
+
+
+def weighted_llama_run(torch, mods, kernel_mods, cfg, compressor,
+                       CollectiveStats, weights, batches):
+    """WEIGHTED_STEPS steps of the full-width model at WORKERS workers from
+    the initial state of seed 0 under ``weights``, every launch count set
+    to 0 just before and read just after.  Returns the run's summary and
+    its final parameters (the rest of its state is freed)."""
+    train, tree, SimMesh, _ = mods
+    stats = CollectiveStats()
+    step, init = train.make_sim_train_step(cfg, SimMesh(WORKERS),
+                                           train.TrainHyper(),
+                                           compressor=compressor, stats=stats)
+    params, ef = init(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches(kernel_mods)
+    losses, step_ms, records = [], [], []
+    for batch in batches:
+        stats.reset()
+        t0 = time.perf_counter()
+        params, ef, metrics = step(params, ef, batch, weights=weights)
+        losses.append(metrics["lm_loss"].item())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        records.append(collective_records(stats))
+    launches = read_all_launches(kernel_mods)
+    run = {"weights": weights, "losses": losses, "step_ms": step_ms,
+           "median_step_ms": statistics.median(step_ms),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": launches, "records": records}
+    if not (math.isfinite(sum(losses))
+            and all_finite(torch, tree, params, ef.error, ef.momentum, ef.comp)):
+        raise AssertionError(f"weighted {weights}: non-finite state or losses "
+                             f"{losses}")
+    return run, params
+
+
+def weighted_llama_phase(torch, mods, kernel_mods, cfg, compressors,
+                         CollectiveStats, n_buckets, unweighted, topk_records):
+    """(b): the full-width weighted paths.  ``unweighted`` holds phase 6's
+    and 7's median step ms and peak GiB, ``topk_records`` phase 7's
+    records per step.  Returns {path: launches}."""
+    tree, SimMesh, MarkovLM = mods[1], mods[2], mods[3]
+    sim = SimMesh(WORKERS)
+    data = MarkovLM(vocab=cfg.vocab_size, seed=0)
+    batches = []
+    for i in range(WEIGHTED_STEPS):
+        toks = torch.tensor(data.sample(WORKERS, SEQ, step=i), device="cuda")
+        batches.append(sim.shard({"tokens": toks[:, :-1], "labels": toks[:, 1:]}))
+    psgd = lambda: compressors.make_compressor("powersgd", rank=RANK)
+    topk = lambda: compressors.make_compressor("top_k", rank=RANK,
+                                               wire_dtype="int4")
+    lowrank_step = {"lowrank_project": n_buckets, "lowrank_backproject": n_buckets}
+    nibble_step = {"nibble_pack": 1, "nibble_unpack": 1}
+    args = (torch, mods, kernel_mods, cfg)
+
+    def check_launches(what, launches, per_step):
+        want = {k: 0 for k in launches}
+        want.update({k: v * WEIGHTED_STEPS for k, v in per_step.items()})
+        if launches != want:
+            raise AssertionError(f"weighted {what}: launches {launches}, "
+                                 f"want {want}")
+
+    # all-ones weights against the unweighted step, one initial state
+    plain, p_plain = weighted_llama_run(*args, psgd(), CollectiveStats, None,
+                                        batches)
+    ones, p_ones = weighted_llama_run(*args, psgd(), CollectiveStats,
+                                      (1.0,) * WORKERS, batches)
+    check_powersgd_parity("powersgd, weights all ones against none",
+                          plain["losses"], ones["losses"], tree.leaves(p_plain),
+                          tree.leaves(p_ones), check="weights_ones_vs_none")
+    check_launches("powersgd, all ones", ones["launches"], lowrank_step)
+    del p_plain, p_ones
+    torch.cuda.empty_cache()
+    out = {}
+    for path, make, weights, per_step, want_records in (
+            ("powersgd", psgd, WEIGHTS_TOKENS, lowrank_step, plain["records"]),
+            ("top_k_int4", topk, WEIGHTS_DROPPED, nibble_step,
+             topk_records[:WEIGHTED_STEPS])):
+        run, params = weighted_llama_run(*args, make(), CollectiveStats, weights,
+                                         batches)
+        del params
+        torch.cuda.empty_cache()
+        base = unweighted[path]
+        print(json.dumps({
+            "check": "weighted llama", "path": path, "workers": WORKERS,
+            **{k: v for k, v in run.items() if k != "records"},
+            "collectives_per_step": dict(zip(
+                ("kinds", "sizes", "itemsizes", "fanouts", "overheads"),
+                run["records"][0])),
+            "unweighted_median_step_ms": base["median_step_ms"],
+            "unweighted_peak_gib": base["peak_gib"],
+            "step_ms_delta": run["median_step_ms"] - base["median_step_ms"],
+            "peak_gib_delta": run["peak_gib"] - base["peak_gib"],
+            "unweighted_here_median_step_ms": plain["median_step_ms"],
+            "ones_median_step_ms": ones["median_step_ms"]}), flush=True)
+        check_launches(path, run["launches"], per_step)
+        if run["records"] != want_records:
+            raise AssertionError(f"weighted {path}: collective records "
+                                 f"{run['records']} differ from the unweighted "
+                                 f"steps' {want_records}")
+        out[f"llama {path}"] = run["launches"]
+    return out
+
+
+def weighted_resnet_phase(torch, pm, kernel_mods, unweighted_ms):
+    """(c): ResNet-18 at PAPER_WORKERS workers under WEIGHTS_RESNET,
+    WEIGHTED_STEPS steps, every launch count set to 0 just before and read
+    just after: B1b and B2b once per bucket per step and no other kernel.
+    ``unweighted_ms`` is phase 10's median step.  Returns the launches."""
+    path = "resnet18"
+    rank, per_worker, _ = PAPER[path]
+    tr = PaperTrainer(torch, pm, path, PAPER_WORKERS, "cuda")
+    st = tr.init()
+    batches = tr.batches(per_worker, WEIGHTED_STEPS)
+    n_buckets = len(pm.bench.tree_buckets(st["params"], tr.specs))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches(kernel_mods)
+    losses, step_ms = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        losses.append(tr.step(st, batch, WEIGHTS_RESNET).item())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = read_all_launches(kernel_mods)
+    median = statistics.median(step_ms)
+    print(json.dumps({"check": "weighted paper model", "path": path,
+                      "workers": PAPER_WORKERS, "per_worker": per_worker,
+                      "rank": rank, "weights": WEIGHTS_RESNET, "losses": losses,
+                      "step_ms": step_ms, "median_step_ms": median,
+                      "unweighted_median_step_ms": unweighted_ms,
+                      "step_ms_delta": median - unweighted_ms,
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "launches": launches}), flush=True)
+    want = {k: 0 for k in launches}
+    want.update(lowrank_project=WEIGHTED_STEPS * n_buckets,
+                lowrank_backproject=WEIGHTED_STEPS * n_buckets)
+    if launches != want:
+        raise AssertionError(f"weighted {path}: launches {launches}, want {want}")
+    tree = pm.tree
+    if not (math.isfinite(sum(losses)) and all_finite(
+            torch, tree, st["params"], st["bn"], st["ef"].error,
+            st["ef"].momentum, st["ef"].comp)):
+        raise AssertionError(f"weighted {path}: non-finite state or losses {losses}")
     del tr, st, batches
     torch.cuda.empty_cache()
     return launches
@@ -1802,9 +2058,9 @@ def main() -> None:
     one_launch_per_call(torch, lowrank, lm_slabs[1])
 
     # -- 6. main path: EF-PowerSGD, full-width 2-layer Llama-3-8B -------------
-    psgd, psgd_classes = train_phase(torch, tmods, kernel_mods, cfg, "powersgd",
-                                     compressors.make_compressor("powersgd",
-                                                                 rank=RANK))
+    psgd, psgd_classes, psgd_run = train_phase(
+        torch, tmods, kernel_mods, cfg, "powersgd",
+        compressors.make_compressor("powersgd", rank=RANK))
     want = {"lowrank_project": TRAIN_STEPS * len(buckets),
             "lowrank_backproject": TRAIN_STEPS * len(buckets),
             "nibble_pack": 0, "nibble_unpack": 0, "ef_apply": 0}
@@ -1814,7 +2070,10 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 7. main path: EF-Top-K on the int4 gather wire -----------------------
+    topk_records = []    # each step's, held against phase 11's weighted steps
+
     def one_reduce_two_gathers(stats):
+        topk_records.append(collective_records(stats))
         print(json.dumps({"collectives": stats.kinds, "sizes": stats.sizes,
                           "itemsizes": stats.itemsizes, "fanouts": stats.fanouts,
                           "overheads": stats.overheads,
@@ -1826,9 +2085,9 @@ def main() -> None:
     topk_comp = compressors.make_compressor("top_k", rank=RANK, wire_dtype="int4")
     if topk_comp.declared_budget() != (3, 1, 2):
         raise AssertionError(f"top_k budget {topk_comp.declared_budget()}")
-    topk, topk_classes = train_phase(torch, tmods, kernel_mods, cfg, "top_k_int4",
-                                     topk_comp, stats=CollectiveStats(),
-                                     per_step_check=one_reduce_two_gathers)
+    topk, topk_classes, topk_run = train_phase(
+        torch, tmods, kernel_mods, cfg, "top_k_int4", topk_comp,
+        stats=CollectiveStats(), per_step_check=one_reduce_two_gathers)
     want = {"lowrank_project": 0, "lowrank_backproject": 0,
             "nibble_pack": TRAIN_STEPS, "nibble_unpack": TRAIN_STEPS,
             "ef_apply": 0}
@@ -1857,12 +2116,24 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 10. the paper's own models -------------------------------------------
-    paper_launches = {}
+    paper_launches, paper_ms = {}, {}
     for path in PAPER:
         t_paper = time.perf_counter()
         paper_parity(torch, pm, path)
-        paper_launches[path] = paper_phase(torch, pm, kernel_mods, path)
+        paper_launches[path], paper_ms[path] = paper_phase(torch, pm, kernel_mods,
+                                                           path)
         print(f"paper model {path}: {time.perf_counter() - t_paper:.1f} s")
+
+    # -- 11. weighted workers -------------------------------------------------
+    t_weighted = time.perf_counter()
+    weighted_small_phase(torch, pmods, compressors)
+    weighted_launches = weighted_llama_phase(
+        torch, tmods, kernel_mods, cfg, compressors, CollectiveStats,
+        len(buckets), {"powersgd": psgd_run, "top_k_int4": topk_run},
+        topk_records)
+    weighted_launches["resnet18"] = weighted_resnet_phase(
+        torch, pm, kernel_mods, paper_ms["resnet18"])
+    print(f"weighted: {time.perf_counter() - t_weighted:.1f} s")
 
     # launches of each kernel on every path this run drove
     paths = {"llama powersgd": psgd, "llama top_k_int4": topk,
@@ -1871,7 +2142,8 @@ def main() -> None:
              **{f"bench_lm {k}": v for k, v in lm_launches.items()},
              "table7": table_launches.pop("table7_lstm"),
              **{f"tables {k}": v for k, v in table_launches.items()},
-             **paper_launches}
+             **paper_launches,
+             **{f"weighted {k}": v for k, v in weighted_launches.items()}}
     by_path = lambda kernel: {p: v[kernel] for p, v in paths.items() if v[kernel]}
 
     summary = []

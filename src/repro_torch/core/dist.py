@@ -16,8 +16,8 @@ The context's backend says how a data-axis collective runs:
   tensors): every tensor is the process's own (``ctx.lead == ()``), a mean
   is a real ``all_reduce`` and a gather a real ``all_gather``.
 
-Not ported yet: model-axis collectives (ROADMAP queue A, item 14), weighted
-means (item 6), ``broadcast_flat`` and ``sync_mode="broadcast"`` (item 13).
+Not ported yet: model-axis collectives (ROADMAP queue A, item 14),
+``broadcast_flat`` and ``sync_mode="broadcast"`` (item 13).
 """
 
 from __future__ import annotations
@@ -94,22 +94,68 @@ class CollectiveStats:
         return out
 
 
-@dataclasses.dataclass(frozen=True)
+def weighted_mean(x: torch.Tensor, w: torch.Tensor, sum_fn,
+                  in_place: bool = False) -> torch.Tensor:
+    """``Σ w·x / Σ w`` with a guarded denominator, ``sum_fn`` the sum over
+    the workers (``v.sum(0)`` over a stacked worker dim, ``w`` viewed as
+    ``(W, 1, …, 1)``).  The single home of the weighted-aggregation
+    semantics: :meth:`SimBackend.pmean` and the engine's receiver-side
+    combine (:meth:`repro_torch.core.engine.Transport.combine_mean`) both
+    call it, so the two are bit-equal.  If every weight is 0 the result is
+    exactly zero, not NaN; the division happens in the weight's dtype
+    (float32).  ``in_place=True`` scales ``x`` itself (the caller's
+    buffer is consumed) instead of a copy: the same values, and no second
+    ``x``-sized buffer."""
+    total = sum_fn(w)
+    wx = w.to(x.dtype)
+    numer = sum_fn(x.mul_(wx) if in_place else x * wx)
+    denom = torch.clamp_min(total, torch.finfo(total.dtype).tiny)
+    return (numer.to(total.dtype) / denom).to(x.dtype)
+
+
+def _per_worker_view(weights: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``(W,)`` weights viewed as ``(W, 1, …, 1)`` against a stacked ``x``."""
+    return weights.view((-1,) + (1,) * (x.dim() - 1))
+
+
+def stacked_weighted_mean(x: torch.Tensor, weights: torch.Tensor,
+                          in_place: bool = False) -> torch.Tensor:
+    """:func:`weighted_mean` over the leading worker dim of a stacked
+    ``(W, ...)`` tensor, ``weights`` a ``(W,)`` vector: what a weighted
+    :meth:`SimBackend.pmean` and the engine's weighted combine compute."""
+    return weighted_mean(x, _per_worker_view(weights, x),
+                         lambda v: v.sum(dim=0), in_place)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class SimBackend:
     """W simulated workers stacked on a leading dim of every per-worker
-    tensor; the mean over workers is exact and held once."""
+    tensor; the mean over workers is exact and held once.
+
+    ``weights`` (optional, a float32 ``(W,)`` tensor on the step's device)
+    are the workers' scenario weights: heterogeneous batches (a worker's
+    valid-token count), dropout and stragglers skipped this round (0).
+    ``pmean`` is then ``Σ wᵢxᵢ / Σ wᵢ`` (exactly zero when every worker is
+    dropped) and ``psum`` is ``Σ wᵢxᵢ``; ``all_gather`` is unweighted (the
+    weights travel beside the payloads, :meth:`MeshCtx.gather_data_weight`).
+    """
 
     workers: int
+    weights: Optional[torch.Tensor] = None
 
     @property
     def lead(self) -> Tuple[int, ...]:
         return (self.workers,)
 
     def pmean(self, x: torch.Tensor) -> torch.Tensor:
-        return x.mean(dim=0)
+        if self.weights is None:
+            return x.mean(dim=0)
+        return stacked_weighted_mean(x, self.weights)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
-        return x.sum(dim=0)
+        if self.weights is None:
+            return x.sum(dim=0)
+        return (x * _per_worker_view(self.weights, x).to(x.dtype)).sum(dim=0)
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """The stacked ``(W, ...)`` buffer already holds every worker's
@@ -317,10 +363,15 @@ class MeshCtx:
         return self.backend.all_gather(x) if self.data_axes else x[None]
 
     def gather_data_weight(self) -> Optional[torch.Tensor]:
-        """The workers' contribution weights for a gather-pattern combine,
-        or ``None`` for uniform workers: no backend carries weights yet
-        (scenario weights wait for ROADMAP queue A, item 6)."""
-        return None
+        """The workers' contribution weights as a ``(W,)`` vector for a
+        gather-pattern combine, or ``None`` for uniform workers.
+
+        Gather-pattern schemes average *decoded* payloads on the receiver,
+        so scenario weights travel with the payloads as a side channel: the
+        engine weights its combine exactly as a weighted ``pmean``.  Not
+        recorded in ``stats`` (no collective budget is spent on it).  Only
+        a weighted :class:`SimBackend` carries weights."""
+        return getattr(self.backend, "weights", None)
 
 
 SINGLE = MeshCtx()  # single worker: all collectives are identities

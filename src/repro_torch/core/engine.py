@@ -24,9 +24,8 @@ and ``decode_leaf(enc, payload, lead)`` rebuilds ``lead + shape`` from
 payloads that carry ``lead`` (the worker's own payload, or the gathered
 ``(W,)`` stack).  Under a ``torch.distributed`` context ``lead`` is ``()``.
 
-Not ported yet: ``StatePartition`` (ROADMAP queue A, item 14),
-``PipelinedTransport`` (ROADMAP queue A, item 12), weighted combines
-(ROADMAP queue A, item 6).
+Not ported yet: ``StatePartition`` (ROADMAP queue A, item 14) and
+``PipelinedTransport`` (ROADMAP queue A, item 12).
 """
 
 from __future__ import annotations
@@ -39,7 +38,7 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch import tree
-from repro_torch.core import matrixize
+from repro_torch.core import dist, matrixize
 from repro_torch.core.dist import SINGLE, MeshCtx
 
 
@@ -118,12 +117,16 @@ class Transport:
     @staticmethod
     def combine_mean(stacked: torch.Tensor,
                      weights: Optional[torch.Tensor]) -> torch.Tensor:
-        """Average W per-worker decodes over the leading gathered dim."""
-        if weights is not None:
-            raise NotImplementedError(
-                "weighted gather combines are not ported yet (ROADMAP queue "
-                "A, item 6)")
-        return stacked.mean(dim=0)
+        """Average W per-worker decodes over the leading gathered dim: the
+        plain mean (``weights=None``) or the weighted ``pmean`` semantics of
+        :func:`repro_torch.core.dist.weighted_mean` (an all-dropped round
+        gives exactly zero): the same function as, so bit-equal to, a weighted
+        :meth:`~repro_torch.core.dist.SimBackend.pmean` of ``stacked``.
+        Weighted, it consumes ``stacked``: the decodes are scaled in place,
+        so no second ``(W,) + leaf`` buffer is made."""
+        if weights is None:
+            return stacked.mean(dim=0)
+        return dist.stacked_weighted_mean(stacked, weights, in_place=True)
 
 
 def collect_leaves(deltas, state, specs) -> list:

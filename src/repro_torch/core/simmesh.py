@@ -3,7 +3,8 @@
 
 Every per-worker value (gradients, error-feedback buffers, batch shards)
 carries a leading worker dim of size W, written out where the JAX package
-used ``vmap``, and ``MeshCtx`` collectives are exact means over it (see
+used ``vmap``, and ``MeshCtx`` collectives are exact means over it,
+weighted under scenario weights (see
 :class:`repro_torch.core.dist.SimBackend`).  Values every worker holds
 identically after an all-reduce (parameters, momentum, warm-start factors)
 are held once.
@@ -36,10 +37,31 @@ class SimMesh:
         if self.workers < 1:
             raise ValueError(f"workers must be ≥ 1, got {self.workers}")
 
-    def ctx(self, stats: Optional[CollectiveStats] = None) -> MeshCtx:
-        """A :class:`MeshCtx` whose data axis is the stacked worker dim."""
+    def ctx(self, stats: Optional[CollectiveStats] = None, weights=None,
+            device=None) -> MeshCtx:
+        """A :class:`MeshCtx` whose data axis is the stacked worker dim.
+
+        ``weights`` — the workers' scenario weights for one step, a ``(W,)``
+        vector of finite, non-negative values; ``None`` = uniform (plain
+        means).  0 drops a worker from the round's aggregates; for
+        heterogeneous batches pass each worker's valid-token count
+        (:class:`~repro_torch.core.dist.SimBackend`).  They are checked
+        where they are given (host values on the host; a CUDA tensor costs
+        a device sync) and held as float32 on ``device`` (default: where
+        they are).  Weights are per step, so build the context per step."""
+        if weights is not None:
+            weights = torch.as_tensor(weights, dtype=torch.float32)
+            if tuple(weights.shape) != (self.workers,):
+                raise ValueError(f"weights of shape {tuple(weights.shape)}, "
+                                 f"want ({self.workers},)")
+            if not bool((torch.isfinite(weights) & (weights >= 0)).all()):
+                raise ValueError(f"weights must be finite and non-negative, "
+                                 f"got {weights.tolist()}")
+            if device is not None:
+                weights = weights.to(device)
         return MeshCtx(data_axes=(self.axis,), stats=stats,
-                       backend=SimBackend(workers=self.workers))
+                       backend=SimBackend(workers=self.workers,
+                                          weights=weights))
 
     def run(self, fn: Callable, in_axes: Union[int, None, Sequence] = 0
             ) -> Callable:

@@ -102,16 +102,20 @@ def _default_compressor(hyper: TrainHyper) -> Compressor:
 
 
 def _make_step(cfg: ModelConfig, hyper: TrainHyper,
-               compressor: Optional[Compressor], ctx: MeshCtx, grads_fn, dev):
+               compressor: Optional[Compressor], lead, grads_fn, dev):
     """``(step_fn, init_state)`` around ``grads_fn(params, batch)`` →
-    (gradient tree with ``ctx.lead`` worker dims, worker-mean ``lm_loss``);
-    the step body shared by both public builders."""
+    (gradient tree with ``lead`` worker dims, the workers' ``lm_loss``);
+    ``step_fn(params, ef_state, batch, ctx, seed)`` is the step body shared
+    by both public builders, run under the step's context ``ctx``."""
     if compressor is None:
         compressor = _default_compressor(hyper)
     mspec_tree = model.mspecs(cfg)
 
-    def step_fn(params, ef_state: EFState, batch, seed=None):
-        grads, loss = grads_fn(params, batch)
+    def step_fn(params, ef_state: EFState, batch, ctx: MeshCtx, seed=None):
+        grads, losses = grads_fn(params, batch)
+        # metrics aggregate through the backend directly: they are not
+        # gradient traffic, so ``stats`` does not record them
+        loss = ctx.backend.pmean(losses)
         lr = _schedule(hyper, ef_state.step)
         params, ef_state, aux = error_feedback.apply_updates(
             compressor, params, grads, ef_state, mspec_tree, lr=lr,
@@ -124,7 +128,7 @@ def _make_step(cfg: ModelConfig, hyper: TrainHyper,
     def init_state(generator: Optional[torch.Generator] = None):
         params = model.init(cfg, generator, device=dev)
         return params, error_feedback.init_state(
-            compressor, params, mspec_tree, lead=ctx.lead, generator=generator)
+            compressor, params, mspec_tree, lead=lead, generator=generator)
 
     return step_fn, init_state
 
@@ -166,9 +170,15 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper,
     def grads_fn(params, batch):
         grads, loss = local_grads(cfg, params, batch, q_chunk=hyper.q_chunk,
                                   device=dev)
-        return tree.unflatten(params, grads), backend.pmean(loss)
+        return tree.unflatten(params, grads), loss
 
-    return _make_step(cfg, hyper, compressor, ctx, grads_fn, dev)
+    body, init_state = _make_step(cfg, hyper, compressor, ctx.lead, grads_fn,
+                                  dev)
+
+    def step_fn(params, ef_state: EFState, batch, seed=None):
+        return body(params, ef_state, batch, ctx, seed)
+
+    return step_fn, init_state
 
 
 def make_sim_train_step(cfg: ModelConfig, sim, hyper: TrainHyper,
@@ -182,13 +192,21 @@ def make_sim_train_step(cfg: ModelConfig, sim, hyper: TrainHyper,
     :func:`repro_torch.core.compressors.make_compressor` (e.g. ``"top_k"``
     with ``wire_dtype="int4"``) drops in.
 
-    ``step_fn(params, ef_state, batch, seed=None)`` →
+    ``step_fn(params, ef_state, batch, seed=None, weights=None)`` →
     ``(params, ef_state, metrics)``.  ``batch`` holds per-worker shards
     ``(W, b, S)`` (:meth:`SimMesh.shard`); ``seed`` as in
-    :func:`make_train_step`.  Parameters, momentum and the
-    compressor state are worker-identical and held once; the error
-    buffers carry the worker dim.  Parameters and momentum are updated in
-    place.  ``metrics["lm_loss"]`` is the worker-mean loss.
+    :func:`make_train_step`.  ``weights`` is an optional ``(W,)`` vector
+    of the workers' scenario weights for this step (checked, then moved to
+    the step's device as float32; see :meth:`SimMesh.ctx`): every
+    aggregate is then the weighted mean ``Σ wᵢxᵢ / Σ wᵢ``.  0 drops a
+    worker from this round's aggregates, while its own error buffer still
+    updates from its own Δ, against the round's reconstruction; for
+    heterogeneous batches pass each worker's valid-token count.  ``None``
+    is uniform, plain means.  Parameters, momentum and the compressor
+    state are worker-identical and held once; the error buffers carry the
+    worker dim.  Parameters and momentum are updated in place.
+    ``metrics["lm_loss"]`` is the workers' loss averaged as the aggregates
+    are (weighted under ``weights``).
 
     ``init_state(generator)`` → ``(params, ef_state)``: random parameters
     (and PowerSGD factors) drawn from ``generator``, zero error buffers and
@@ -198,9 +216,13 @@ def make_sim_train_step(cfg: ModelConfig, sim, hyper: TrainHyper,
     w = sim.workers
 
     def grads_fn(params, batch):
-        grads, losses = worker_grads(cfg, params, batch, w,
-                                     q_chunk=hyper.q_chunk, device=dev)
-        return grads, losses.mean()
+        return worker_grads(cfg, params, batch, w, q_chunk=hyper.q_chunk,
+                            device=dev)
 
-    return _make_step(cfg, hyper, compressor, sim.ctx(stats=stats), grads_fn,
-                      dev)
+    body, init_state = _make_step(cfg, hyper, compressor, (w,), grads_fn, dev)
+
+    def step_fn(params, ef_state: EFState, batch, seed=None, weights=None):
+        return body(params, ef_state, batch,
+                    sim.ctx(stats=stats, weights=weights, device=dev), seed)
+
+    return step_fn, init_state

@@ -42,6 +42,17 @@ from repro_torch.data.synthetic import MarkovLM
 from repro_torch.kernels import ef_apply, lowrank, quant
 from repro_torch.models import model
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread for this module: parallel test workers that each
+    run a full intra-op pool starve each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location(
     "reference_bench_common", ROOT / "benchmarks" / "common.py")

@@ -59,6 +59,17 @@ from repro_torch.core.simmesh import SimMesh
 from repro_torch.data.synthetic import MarkovLM
 from repro_torch.launch import train
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread for this module: parallel test workers that each
+    run a full intra-op pool starve each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 pytestmark = pytest.mark.timeout(180)
 
 W, BATCH, SEQ = 4, 8, 32

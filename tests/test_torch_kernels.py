@@ -24,6 +24,17 @@ from repro_torch.bench import common as bench
 from repro_torch.configs import llama3_8b
 from repro_torch.kernels import _build, lowrank, ops, ref
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread for this module: parallel test workers that each
+    run a full intra-op pool starve each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ATOL = RTOL = 1e-4
 
 # the bucket slabs (B, n, m) of the benchmark LM (LMSpec: d_model 128, 2

@@ -44,6 +44,17 @@ from repro_torch.data.synthetic import MarkovLM
 from repro_torch.launch.train import grad_with_aux
 from repro_torch.models import lstm
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread for this module: parallel test workers that each
+    run a full intra-op pool starve each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 KEY = jax.random.key(0)
 SMALL = dict(vocab=32, embed=16, hidden=16, layers=2, init_scale=0.15)
 STEPS, RANK, LR, SEQ = 3, 2, 0.8, 8

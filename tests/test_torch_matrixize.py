@@ -19,6 +19,16 @@ from repro_torch.core import matrixize as mz
 from repro_torch.models import model
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread for this module: parallel test workers that each
+    run a full intra-op pool starve each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _norm(x):
     """Plan tuples with dtypes as plain names, comparable across packages."""
     if isinstance(x, (tuple, list)):

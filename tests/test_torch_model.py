@@ -23,6 +23,16 @@ from repro_torch.launch import train
 from repro_torch.models import model
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread for this module: parallel test workers that each
+    run a full intra-op pool starve each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def setup():
     jcfg, cfg = jllama.reduced_config(), llama3_8b.reduced_config()

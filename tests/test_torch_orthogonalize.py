@@ -11,6 +11,16 @@ from repro.core import orthogonalize as jorth
 from repro_torch.core import orthogonalize as orth
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread for this module: parallel test workers that each
+    run a full intra-op pool starve each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _cases():
     rng = np.random.default_rng(0)
     yield "random", rng.standard_normal((3, 50, 4)).astype(np.float32)

@@ -20,6 +20,17 @@ from repro_torch.core import dist, engine, matrixize as mz, powersgd
 from repro_torch.core.compressors import PowerSGDCompressor
 from repro_torch.core.simmesh import SimMesh
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread for this module: parallel test workers that each
+    run a full intra-op pool starve each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ATOL, RTOL = 1e-5, 1e-4
 
 SHAPES = {"w1": (3, 24, 16), "w2": (20, 15), "w3": (24, 14), "b": (16,),

@@ -20,6 +20,17 @@ from repro.kernels import quant as jquant
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops, quant, ref
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread for this module: parallel test workers that each
+    run a full intra-op pool starve each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ALL_CODES = np.arange(-128, 128, dtype=np.int8)      # out-of-range included
 ALL_BYTES = np.arange(256, dtype=np.uint8)
 

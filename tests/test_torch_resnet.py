@@ -44,6 +44,17 @@ from repro_torch.launch.train import grad_with_aux
 from repro_torch.models import resnet
 from repro_torch.optim import schedules
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread for this module: parallel test workers that each
+    run a full intra-op pool starve each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 KEY = jax.random.key(0)
 SMALL = dict(width=8, blocks=(1, 1), num_classes=4)
 W, STEPS, RANK, WD, PER_EPOCH = 2, 3, 2, 1e-4, 2

@@ -25,6 +25,16 @@ from repro_torch.data import synthetic
 from repro_torch.optim import schedules
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread for this module: parallel test workers that each
+    run a full intra-op pool starve each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("seed,size,channels,classes", [
     (0, 8, 3, 4), (3, 32, 3, 10), (7, 5, 1, 2)])
 def test_gaussian_clusters_bit_equal_reference(seed, size, channels, classes):

@@ -58,6 +58,17 @@ from repro_torch.core import matrixize as mz
 from repro_torch.core.compressors import make_compressor
 from repro_torch.models import lstm, model
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread for this module: parallel test workers that each
+    run a full intra-op pool starve each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 RECORDS = ROOT / "experiments" / "benchmarks"
 

@@ -43,6 +43,17 @@ from repro_torch.data.synthetic import MarkovLM
 from repro_torch.kernels import lowrank, quant
 from repro_torch.launch import train
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread for this module: parallel test workers that each
+    run a full intra-op pool starve each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ATOL = RTOL = 1e-6
 KEY = jax.random.key(0)
 SHAPES = {"w1": (24, 16), "conv": (8, 4, 3, 3), "stack": (3, 12, 6),
@@ -310,7 +321,8 @@ def test_unported_compressor_options_raise():
     """The rest of the zoo and ``transport="per_leaf"`` (ROADMAP queue A,
     items 4 and 5) are ported: every reference name builds, an unknown one
     raises ``ValueError`` as in the reference, and Top-K's per-leaf path
-    matches the reference's.  Weighted combines (item 6) still raise."""
+    matches the reference's.  Scenario weights (item 6) are ported too: a
+    weighted gather combine returns ``Σ wᵢxᵢ / Σ wᵢ``."""
     for name in ("sign_norm", "random_k", "spectral_atomo", "exact_rank_k"):
         assert (compressors.make_compressor(name).name
                 == jcomp.make_compressor(name).name)
@@ -328,8 +340,9 @@ def test_unported_compressor_options_raise():
         np.testing.assert_array_equal(recon[k], recon_r[k], err_msg=k)
     assert bits == bits_r
     assert _records(stats) == _records(jstats)
-    with pytest.raises(NotImplementedError, match=r"item 6\b"):
-        engine.Transport.combine_mean(torch.zeros(2, 3), torch.ones(2))
+    stacked = torch.tensor([[1.0, 2.0, 3.0], [5.0, 6.0, 7.0]])
+    got = engine.Transport.combine_mean(stacked, torch.tensor([3.0, 1.0]))
+    assert torch.equal(got, torch.tensor([2.0, 3.0, 4.0]))
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,17 @@ from repro_torch.data.synthetic import MarkovLM
 from repro_torch.kernels import lowrank
 from repro_torch.launch import train
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread for this module: parallel test workers that each
+    run a full intra-op pool starve each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 W, STEPS, BATCH, SEQ = 4, 5, 8, 32
 
 
