@@ -33,9 +33,17 @@ Phases, in order; any failure raises and the script exits non-zero:
               versions (every int8 code, every byte, odd, long, batched
               and unaligned shapes, the int4 chunk of the Top-K path, and
               the int4 chunks of Sign+Norm's norms and Spectral Atomo's
-              (P, V) on the LM at W = 4 and on Llama at W = 2) and time
-              them at the Top-K chunk beside the floor one launch meets
-              there: a device-to-device ``copy_`` of the same int8 codes.
+              (P, V) on the LM at W = 4 and on Llama at W = 2, ragged rows
+              (3, 1001) and (16, n − 1), 16 rows of the Top-K chunk,
+              inputs 1, 8 and 15 bytes past a 16-byte boundary, and the
+              kernels inside a captured CUDA graph) and time them at the
+              Top-K chunk (L2-hot; back to back, and each after a PyTorch
+              kernel that writes its input, as on the path: the kernels
+              line's ``ms``) beside the floor one launch meets there, a
+              device-to-device ``copy_`` of the same int8 codes, and at
+              16 rows of it (L2-cold: inputs rotated, outputs kept); then
+              ``quant_pack_flat`` / ``quant_unpack_flat`` at the Top-K
+              chunk, each one launch of its kernel among PyTorch's.
               Then drive ``ops.ef_apply`` (the fused error-feedback apply,
               whose entry point is its main path) once at each of the six
               parameter slabs, hold every result against its plain version,
@@ -116,6 +124,7 @@ power limit come just before.
 import concurrent.futures
 import dataclasses
 import datetime
+import itertools
 import json
 import math
 import os
@@ -441,68 +450,188 @@ def one_launch_per_call(torch, lowrank, slab):
                                  f"{kind}_kernel")
 
 
-def quant_phase(torch, quant, ref, chunk_shape, peaks, held):
-    """Hold the nibble kernels bit for bit against their plain versions and
-    time them at the int4 chunk of the Top-K path; ``held`` are the chunk
-    shapes other paths give them, held without timing.  Returns per-kernel
-    rows."""
-    _, bw, _ = peaks
-    gen = torch.Generator("cuda").manual_seed(1)
+def cold_graph_ms(torch, fn, inputs, iters: int = 50) -> float:
+    """``graph_ms`` of ``fn`` over ``inputs`` in turn, every output kept:
+    one replay touches ``iters`` outputs and every input, so a working set
+    above the 50 MB L2 reaches each call cold."""
+    outs, turn = [], itertools.count()
+    ms = graph_ms(torch, lambda: outs.append(fn(inputs[next(turn) % len(inputs)])),
+                  iters)
+    outs.clear()
+    return ms
 
-    def codes(shape):   # the whole int8 range: the kernels keep low nibbles
-        return torch.randint(-128, 128, shape, generator=gen, device="cuda",
-                             dtype=torch.int8)
+
+def at_offset(torch, x, offset: int):
+    """A contiguous copy of ``x`` starting ``offset`` bytes past a 512-byte
+    boundary (the caching allocator's): ``x``'s rows, misaligned."""
+    buf = torch.empty(x.numel() * x.element_size() + offset, dtype=torch.uint8,
+                      device=x.device)
+    view = buf[offset:].view(x.dtype).view(x.shape)
+    view.copy_(x)
+    return view
+
+
+# the nibble kernels' cold payload: the Top-K chunk's codes at the paper's
+# 16 workers (the gathered payload unpack takes), inputs rotated so that
+# they alone (8 x 6.9 MB packed, 8 x 13.7 MB codes) exceed the 50 MB L2
+NIBBLE_COLD_ROWS, NIBBLE_COLD_INPUTS = 16, 8
+NIBBLE_OFFSETS = (1, 8, 15)   # bytes past a 16-byte boundary
+
+
+def nibble_codes(torch, gen, shape):
+    """Random int8 codes over the whole int8 range (the kernels keep low
+    nibbles)."""
+    return torch.randint(-128, 128, shape, generator=gen, device="cuda",
+                         dtype=torch.int8)
+
+
+def quant_checks(torch, quant, ref, chunk_shape, held):
+    """Hold the nibble kernels bit for bit against their plain versions:
+    every code and byte, odd, ragged, batched and misaligned shapes, the
+    Top-K chunk ``chunk_shape`` and 16 rows of it, the shapes ``held`` that
+    other paths give them, and a CUDA-graph replay.  Raises on a mismatch."""
+    gen = torch.Generator("cuda").manual_seed(1)
+    codes = lambda shape: nibble_codes(torch, gen, shape)
+    n = chunk_shape[-1]
+    cold_shape = (NIBBLE_COLD_ROWS, n)
 
     cases = [("every int8 code", torch.arange(-128, 128, device="cuda",
                                               dtype=torch.int8))]
-    cases += [(f"n={n}", codes((n,))) for n in (1, 2, 3, 129, 2**20 + 1)]
+    cases += [(f"n={k}", codes((k,))) for k in (1, 2, 3, 129, 2**20 + 1)]
     cases += [("(4, 1001)", codes((4, 1001))), ("(3, 31)", codes((3, 31))),
-              ("(5, 66)", codes((5, 66))),
-              (f"Top-K int4 chunk {chunk_shape}", codes(chunk_shape))]
+              ("(5, 66)", codes((5, 66))), ("(3, 1001)", codes((3, 1001))),
+              (f"Top-K int4 chunk {chunk_shape}", codes(chunk_shape)),
+              (f"(16, {n - 1})", codes((NIBBLE_COLD_ROWS, n - 1))),
+              (f"{cold_shape}", codes(cold_shape))]
     cases += [(f"held chunk {shape}", codes(shape)) for shape in held]
+    # misaligned starts: each kernel's input at 1, 8 and 15 bytes past a
+    # 16-byte boundary, 1-D and 2-D (every row then starts misaligned)
+    misaligned = [(f"{shape} at byte offset {off}", off, codes(shape))
+                  for off in NIBBLE_OFFSETS for shape in ((4099,), (3, 4096), (3, 1001))]
     mismatches = {"nibble_pack": 0, "nibble_unpack": 0}
-    for name, c in cases:
-        n = c.shape[-1]
-        packed = quant.nibble_pack(c)
-        bad_pack = int((packed != ref.nibble_pack(c)).sum())
-        bad_unpack = int((quant.nibble_unpack(packed, n)
-                          != ref.nibble_unpack(packed, n)).sum())
-        print(json.dumps({"check": "nibble", "case": name, "shape": list(c.shape),
+
+    def record(name, shape, bad_pack, bad_unpack):
+        print(json.dumps({"check": "nibble", "case": name, "shape": list(shape),
                           "pack_mismatches": bad_pack,
                           "unpack_mismatches": bad_unpack}), flush=True)
         mismatches["nibble_pack"] += bad_pack
         mismatches["nibble_unpack"] += bad_unpack
+
+    for name, c in cases:
+        k = c.shape[-1]
+        packed = quant.nibble_pack(c)
+        record(name, c.shape, int((packed != ref.nibble_pack(c)).sum()),
+               int((quant.nibble_unpack(packed, k) != ref.nibble_unpack(packed, k)).sum()))
+    for name, off, c in misaligned:
+        k = c.shape[-1]
+        c_off = at_offset(torch, c, off)
+        p_off = at_offset(torch, ref.nibble_pack(c), off)
+        if c_off.data_ptr() % 16 != off or p_off.data_ptr() % 16 != off:
+            raise AssertionError(f"{name}: the views are not at byte offset {off}")
+        record(name, c.shape, int((quant.nibble_pack(c_off) != ref.nibble_pack(c)).sum()),
+               int((quant.nibble_unpack(p_off, k) != ref.nibble_unpack(p_off, k)).sum()))
     every_byte = torch.arange(256, device="cuda", dtype=torch.uint8)
-    for n in (511, 512):
-        bad = int((quant.nibble_unpack(every_byte, n)
-                   != ref.nibble_unpack(every_byte, n)).sum())
-        print(json.dumps({"check": "nibble", "case": f"every byte, n={n}",
+    for k in (511, 512):
+        bad = int((quant.nibble_unpack(every_byte, k)
+                   != ref.nibble_unpack(every_byte, k)).sum())
+        print(json.dumps({"check": "nibble", "case": f"every byte, n={k}",
                           "unpack_mismatches": bad}), flush=True)
         mismatches["nibble_unpack"] += bad
+    # the kernels inside one captured graph, where each launch's PDL
+    # attribute becomes a graph edge: pack after a copy node, unpack after
+    # pack, pack again after a PyTorch kernel
+    c = codes(chunk_shape)
+    src = torch.empty_like(c)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        quant.nibble_unpack(quant.nibble_pack(src), n)   # warm up outside the capture
+        with torch.cuda.graph(graph, stream=side):
+            src.copy_(c)
+            g_packed = quant.nibble_pack(src)
+            g_codes = quant.nibble_unpack(g_packed, n)
+            g_negated = quant.nibble_pack(torch.neg(g_codes))
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    want_codes = ref.nibble_unpack(ref.nibble_pack(c), n)
+    record(f"graph replay {chunk_shape}", chunk_shape,
+           int((g_packed != ref.nibble_pack(c)).sum())
+           + int((g_negated != ref.nibble_pack(torch.neg(want_codes))).sum()),
+           int((g_codes != want_codes).sum()))
+    del graph, g_packed, g_codes, g_negated, src
     if any(mismatches.values()):
         raise AssertionError(f"nibble kernels differ from their plain "
                              f"versions: {mismatches} elements")
+    torch.cuda.synchronize()
 
+
+def after_torch_ms(torch, producer, kern, iters: int = 50):
+    """(ms, ms with ``producer``): device time per call of ``kern`` when a
+    PyTorch kernel, ``producer``, writes its input just before each call, as
+    on the training path.  Graph replay of both, less that of ``producer``
+    alone; median of 3.  Back to back, a PDL launch may hide behind the B4
+    launch before it; after a PyTorch kernel, which never signals its
+    dependents early, it cannot."""
+    both, alone = [], []
+    for _ in range(3):
+        both.append(graph_ms(torch, lambda: (producer(), kern()), iters))
+        alone.append(graph_ms(torch, producer, iters))
+    return (statistics.median(b - a for b, a in zip(both, alone)),
+            statistics.median(both))
+
+
+def quant_phase(torch, quant, ref, matrixize, chunk, chunk_parts, chunk_shape, peaks,
+                held):
+    """:func:`quant_checks`, then time the nibble kernels at the int4 chunk
+    of the Top-K path (``chunk``, whose float parts are ``chunk_parts``:
+    meta tensors, the worker dim first; ``chunk_shape`` its codes), hot,
+    back to back and each after a PyTorch kernel, and at
+    ``NIBBLE_COLD_ROWS`` rows of it, cold; then ``quant_pack_flat`` /
+    ``quant_unpack_flat`` around them.  Returns per-kernel rows."""
+    _, bw, _ = peaks
+    workers = chunk_shape[0]
+    quant_checks(torch, quant, ref, chunk_shape, held)
+    gen = torch.Generator("cuda").manual_seed(3)
+    codes = lambda shape: nibble_codes(torch, gen, shape)
+    n = chunk_shape[-1]
+    cold_shape = (NIBBLE_COLD_ROWS, n)
     c = codes(chunk_shape)
     packed = ref.nibble_pack(c)
-    n = chunk_shape[-1]
     unpacked = quant.nibble_unpack(packed, n)
     nbytes = c.numel() + packed.numel()   # each input read, each output written once
+    cold_codes = [codes(cold_shape) for _ in range(NIBBLE_COLD_INPUTS)]
+    cold_packed = [ref.nibble_pack(x) for x in cold_codes]
+    cold_bytes = cold_codes[0].numel() + cold_packed[0].numel()
     # the floor one launch meets to move this payload: a device-to-device
     # copy_ of B4a's input bytes and one of B4b's output bytes (the same
     # count: the int8 codes), timed by the same graph replay
     floors = {"nibble_pack": (torch.empty_like(c), c),
               "nibble_unpack": (torch.empty_like(unpacked), unpacked)}
+    # on the path a PyTorch kernel writes each one's input just before it
+    # (the cat of the codes; the gathered payload): a copy_ of it here
+    producers = {"nibble_pack": (c, c.clone()),
+                 "nibble_unpack": (packed, packed.clone())}
     rows = {}
-    for name, kern, plain in (
-            ("nibble_pack", lambda: quant.nibble_pack(c), lambda: ref.nibble_pack(c)),
+    for name, kern, plain, cold in (
+            ("nibble_pack", lambda: quant.nibble_pack(c), lambda: ref.nibble_pack(c),
+             lambda: cold_graph_ms(torch, quant.nibble_pack, cold_codes)),
             ("nibble_unpack", lambda: quant.nibble_unpack(packed, n),
-             lambda: ref.nibble_unpack(packed, n))):
+             lambda: ref.nibble_unpack(packed, n),
+             lambda: cold_graph_ms(torch, lambda x: quant.nibble_unpack(x, n),
+                                   cold_packed))):
         dst, src = floors[name]
-        # device time per call, and the wall time per call of back-to-back
-        # calls, which the host's launch cost sets at this size
+        into, fresh = producers[name]
+        path_ms, with_producer_ms = after_torch_ms(
+            torch, lambda: into.copy_(fresh), kern)
+        # device time per call (hot: the caller has just written the
+        # input), back to back and each after a PyTorch kernel, and the
+        # wall time per call of back-to-back calls, which the host's launch
+        # cost sets at this size
         row = {"kernel": name, "shape": list(chunk_shape),
                "kernel_ms": graph_ms(torch, kern, 50),
+               "path_ms": path_ms, "with_producer_ms": with_producer_ms,
                "plain_ms": graph_ms(torch, plain, 50),
                "copy_floor_ms": graph_ms(torch, lambda: dst.copy_(src), 50),
                "copy_floor_bytes": 2 * src.numel(),
@@ -511,9 +640,32 @@ def quant_phase(torch, quant, ref, chunk_shape, peaks, held):
                "bound_ms": nbytes / bw * 1e3, "bound_by": "bytes",
                "max_abs_err": 0.0}
         row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+        row["path_bound_share"] = row["bound_ms"] / row["path_ms"]
         row["over_copy_floor"] = row["kernel_ms"] / row["copy_floor_ms"]
         print(json.dumps(row), flush=True)
-        rows[name] = row
+        cold_row = {"kernel": name, "shape": list(cold_shape), "l2": "cold",
+                    "kernel_ms": cold(), "bound_ms": cold_bytes / bw * 1e3,
+                    "bound_by": "bytes"}
+        cold_row["bound_share"] = cold_row["bound_ms"] / cold_row["kernel_ms"]
+        print(json.dumps(cold_row), flush=True)
+        rows[name] = {**row, "cold": cold_row}
+    del cold_codes, cold_packed
+
+    # the real neighbours: quantize + one pack, one unpack + dequantize
+    parts = [None] * len(chunk_parts)
+    for s in chunk.slots:
+        parts[s.index] = torch.randn(chunk_parts[s.index].shape, generator=gen,
+                                     device="cuda")
+    payload, scales = matrixize.quant_pack_flat(chunk, parts, lead=1)
+    flat = {"check": "quant flat at the Top-K chunk", "shape": list(chunk_shape),
+            "slots": len(chunk.slots),
+            "quant_pack_flat_ms": graph_ms(
+                torch, lambda: matrixize.quant_pack_flat(chunk, parts, lead=1), 20),
+            "quant_unpack_flat_ms": graph_ms(
+                torch, lambda: matrixize.quant_unpack_flat(
+                    chunk, payload, scales, leading=(workers,)), 20),
+            "reading": "graph replay; each includes one launch of its nibble kernel"}
+    print(json.dumps(flat), flush=True)
     torch.cuda.synchronize()
     return rows
 
@@ -1846,9 +1998,10 @@ def weighted_resnet_phase(torch, pm, kernel_mods, unweighted_ms):
     return launches
 
 
-def int4_chunk_shape(torch, cfg, model, matrixize, tree, workers, scheme="top_k"):
-    """(workers, codes) of the int4 chunk ``scheme``'s gather packs each
-    step on ``cfg``: its float payload parts per compressed leaf (Top-K: b =
+def int4_chunk(torch, cfg, model, matrixize, tree, workers, scheme="top_k"):
+    """(chunk, parts, (workers, codes)): the int4 chunk ``scheme``'s gather
+    packs each step on ``cfg``, the payload parts it plans from (meta
+    tensors, the worker dim first) and the shape of its codes: its float payload parts per compressed leaf (Top-K: b =
     r·(n+m) values beside int32 indices; Sign+Norm: one norm beside the int8
     signs; Spectral Atomo: P (count, n, r) and V (count, m, r)), each slot
     padded to an even code count."""
@@ -1870,7 +2023,7 @@ def int4_chunk_shape(torch, cfg, model, matrixize, tree, workers, scheme="top_k"
             parts += [f(count * n * RANK), f(count * m * RANK)]
     plan = matrixize.plan_flat(parts, wire_dtype="int4", lead=1)
     chunk = next(c for c in plan.chunks if c.quant)
-    return (workers, 2 * sum(matrixize.quant_slot_sizes(chunk)))
+    return chunk, parts, (workers, 2 * sum(matrixize.quant_slot_sizes(chunk)))
 
 
 def leaf_slabs(cfg, model, matrixize, tree, workers):
@@ -1995,20 +2148,21 @@ def main() -> None:
             r["kernel"] + " " + "x".join(map(str, r["shape"])): {
                 "kernel_graph_ms": r["kernel_graph_ms"], "bound_ms": r["bound_ms"],
                 "bound_share": r["bound_share"]} for r in words}}), flush=True)
-    chunk_shape = int4_chunk_shape(torch, cfg, model, matrixize, tree, WORKERS)
+    chunk, chunk_parts, chunk_shape = int4_chunk(torch, cfg, model, matrixize, tree,
+                                                 WORKERS)
     print(f"Top-K int4 chunk (workers x codes): {chunk_shape}")
     # phase 5 packs one worker's codes without a worker dim and unpacks the
     # gathered (1, bytes) payload; Sign+Norm's norms and Spectral Atomo's
     # (P, V) ride int4 gather chunks too (phase 4 at the LM's W = 4; the
     # same chunks of Llama at W = 2 held as well)
-    one = int4_chunk_shape(torch, cfg, model, matrixize, tree, 1)
-    zoo_chunks = [int4_chunk_shape(torch, c, model, matrixize, tree, w, scheme)
+    one = int4_chunk(torch, cfg, model, matrixize, tree, 1)[2]
+    zoo_chunks = [int4_chunk(torch, c, model, matrixize, tree, w, scheme)[2]
                   for scheme in ("sign_norm", "spectral_atomo")
                   for c, w in ((lm_cfg, lm_spec.workers), (cfg, WORKERS))]
     print(f"Sign+Norm and Spectral Atomo int4 chunks (LM W={lm_spec.workers}, "
           f"Llama W={WORKERS}): {zoo_chunks}")
-    nibble_rows = quant_phase(torch, quant, ref, chunk_shape, peaks,
-                              held=[one[1:], one] + zoo_chunks)
+    nibble_rows = quant_phase(torch, quant, ref, matrixize, chunk, chunk_parts,
+                              chunk_shape, peaks, held=[one[1:], one] + zoo_chunks)
     t_ef = time.perf_counter()
     ef_rows, ef_launches = ef_apply_phase(torch, ops, ef_kernel, ref, param_slabs,
                                           peaks)
@@ -2167,10 +2321,13 @@ def main() -> None:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/quant.cu", "replaces": replaces,
             "launches": topk[name], "max_abs_err": row["max_abs_err"],
-            "ms": row["kernel_ms"] * per_step,
+            "ms": row["path_ms"] * per_step,
             "plain_ms": row["plain_ms"] * per_step,
             "bound_ms": row["bound_ms"] * per_step, "bound_by": "bytes",
-            "library_ms": None, "copy_floor_ms": row["copy_floor_ms"] * per_step,
+            "library_ms": None, "back_to_back_ms": row["kernel_ms"] * per_step,
+            "copy_floor_ms": row["copy_floor_ms"] * per_step,
+            "cold_shape": row["cold"]["shape"], "cold_ms": row["cold"]["kernel_ms"],
+            "cold_bound_ms": row["cold"]["bound_ms"],
             "launches_by_path": by_path(name)})
     summary.append({
         "name": "ef_apply", "route": "cuda",

@@ -9,8 +9,11 @@ unpacks every simulated worker's payload; the result is bit-for-bit that of
 
 The wrappers take CUDA tensors only and raise on anything else; the CPU
 path is :mod:`repro_torch.kernels.ops`' job.  The library builds with
-``nvcc`` on first use (:mod:`repro_torch.kernels._build`).  ``LAUNCHES``
-counts the wrapper calls that launched their kernel.
+``nvcc`` on first use (:mod:`repro_torch.kernels._build`).  Each kernel
+launches as a programmatic dependent of the kernel before it on the stream
+(Hopper's PDL; ``csrc/quant.cu`` says why); a refused launch raises with its
+CUDA error.  ``LAUNCHES`` counts the wrapper calls that launched their
+kernel.
 """
 
 from __future__ import annotations
@@ -38,8 +41,8 @@ def library() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.load("quant")
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.nibble_pack.argtypes = [ptr, ptr, i64, i64, i32, ptr]
-        lib.nibble_unpack.argtypes = [ptr, ptr, i64, i64, i64, i32, ptr]
+        lib.nibble_pack.argtypes = [ptr, ptr, i64, i64, ptr]
+        lib.nibble_unpack.argtypes = [ptr, ptr, i64, i64, i64, ptr]
         lib.nibble_pack.restype = lib.nibble_unpack.restype = i32
         lib.quant_error_string.argtypes = [i32]
         lib.quant_error_string.restype = ctypes.c_char_p
@@ -63,11 +66,9 @@ def _check(x: torch.Tensor, dtype: torch.dtype, what: str) -> int:
 
 def _launch(name: str, x: torch.Tensor, out: torch.Tensor, *sizes: int):
     lib = library()
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(lib, name)(x.data_ptr(), out.data_ptr(), *sizes, sms,
-                                 stream)
+    with torch.cuda.device(x.device.index):
+        err = getattr(lib, name)(x.data_ptr(), out.data_ptr(), *sizes,
+                                 torch.cuda.current_stream().cuda_stream)
     if err:
         msg = lib.quant_error_string(err).decode()
         raise RuntimeError(f"{name}: kernel launch failed: CUDA error {err} "

@@ -82,6 +82,69 @@ def test_nibble_matches_pallas_interpret(n):
           jquant.nibble_unpack(packed, n, interpret=True))
 
 
+def _at_offset(x: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of ``x`` that starts ``offset`` bytes into a larger
+    buffer, as ``chip_smoke.at_offset`` builds the kernels' misaligned
+    inputs."""
+    buf = torch.zeros(x.numel() + offset + 16, dtype=torch.uint8)
+    view = buf[offset:offset + x.numel()].view(x.dtype).view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.storage_offset() == offset
+    return view
+
+
+# the misaligned starts and ragged rows chip_smoke holds the kernels to,
+# at small n: (16, 1023) and (16, 1024) stand for (16, 857087) and
+# (16, 857088), 16 workers' Top-K chunk
+OFFSETS = [1, 8, 15]
+OFFSET_SHAPES = [(4099,), (3, 4096), (3, 1001)]
+RAGGED_SHAPES = [(3, 1001), (16, 1023), (16, 1024), (2, 1024), (4, 1001)]
+
+
+@pytest.mark.parametrize("offset", OFFSETS)
+@pytest.mark.parametrize("shape", OFFSET_SHAPES)
+def test_nibble_plain_at_byte_offsets(shape, offset):
+    """Views at odd byte offsets of a larger buffer, row by row against the
+    reference, both ways, every int8 value."""
+    c = np.resize(ALL_CODES, shape)
+    view = _at_offset(torch.tensor(c), offset)
+    packed = ref.nibble_pack(view)
+    packed_view = _at_offset(packed, offset)
+    n = shape[-1]
+    unpacked = ref.nibble_unpack(packed_view, n)
+    for i, row in enumerate(c.reshape(-1, n)):
+        want = jref.nibble_pack(jnp.asarray(row))
+        _same(packed.reshape(-1, packed.shape[-1])[i], want)
+        _same(unpacked.reshape(-1, n)[i], jref.nibble_unpack(want, n))
+
+
+@pytest.mark.parametrize("shape", RAGGED_SHAPES)
+def test_nibble_plain_multirow_odd_shapes(shape):
+    """Multi-row shapes whose rows are not a multiple of 32 codes, row by
+    row against the reference."""
+    c = np.resize(ALL_CODES[::-1], shape)
+    packed = ref.nibble_pack(torch.tensor(c))
+    n = shape[-1]
+    for i, row in enumerate(c):
+        want = jref.nibble_pack(jnp.asarray(row))
+        _same(packed[i], want)
+        _same(ref.nibble_unpack(packed[i], n), jref.nibble_unpack(want, n))
+
+
+@pytest.mark.parametrize("shape", RAGGED_SHAPES + OFFSET_SHAPES)
+def test_nibble_roundtrip_chip_smoke_shapes(shape):
+    """Codes in [-8, 7] come back as they went; any other int8 value comes
+    back as its low nibble, sign-extended."""
+    c = _codes(shape, seed=shape[-1])
+    packed = ref.nibble_pack(torch.tensor(c))
+    assert packed.shape == shape[:-1] + ((shape[-1] + 1) // 2,)
+    _same(ref.nibble_unpack(packed, shape[-1]), c)
+    wide = np.resize(ALL_CODES, shape)
+    low = (wide.astype(np.int16) & 0xF).astype(np.int8)
+    _same(ref.nibble_unpack(ref.nibble_pack(torch.tensor(wide)), shape[-1]),
+          np.where(low >= 8, low - 16, low).astype(np.int8))
+
+
 def _float_rows(seed):
     """Rows that hit the quantizer's edge cases: random values, exact
     half-way points of the int4 grid, zeros and an all-zero row."""
@@ -153,3 +216,35 @@ def test_cuda_nibble_unpack_all_bytes():
     b = torch.tensor(ALL_BYTES, device=dev)
     for n in (511, 512):
         assert torch.equal(quant.nibble_unpack(b, n), ref.nibble_unpack(b, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", OFFSETS)
+@pytest.mark.parametrize("shape", OFFSET_SHAPES + [(16, 857088)])
+def test_cuda_nibble_kernels_misaligned(shape, offset):
+    """Inputs that start 1, 8 or 15 bytes past a 16-byte boundary: every
+    row takes the byte path."""
+    dev = _cuda()
+    c = torch.tensor(np.resize(ALL_CODES, shape), device=dev)
+    view = torch.empty(c.numel() + offset, dtype=torch.int8, device=dev)[offset:]
+    view = view.view(shape)
+    view.copy_(c)
+    assert view.data_ptr() % 16 == offset
+    assert torch.equal(quant.nibble_pack(view), ref.nibble_pack(c))
+    packed = ref.nibble_pack(c)
+    pview = torch.empty(packed.numel() + offset, dtype=torch.uint8,
+                        device=dev)[offset:].view(packed.shape)
+    pview.copy_(packed)
+    n = shape[-1]
+    assert torch.equal(quant.nibble_unpack(pview, n), ref.nibble_unpack(packed, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 1001), (16, 857087), (16, 857088)])
+def test_cuda_nibble_kernels_ragged_rows(shape):
+    dev = _cuda()
+    c = torch.tensor(np.resize(ALL_CODES[::-1], shape), device=dev)
+    packed = quant.nibble_pack(c)
+    assert torch.equal(packed, ref.nibble_pack(c))
+    n = shape[-1]
+    assert torch.equal(quant.nibble_unpack(packed, n), ref.nibble_unpack(packed, n))
