@@ -111,6 +111,17 @@ Phases, in order; any failure raises and the script exits non-zero:
               collective records as unweighted, step time and peak memory
               beside phases 6 and 7's; ResNet-18 at W = 16 with a short
               batch and a straggler, step time beside phase 10's.
+12. warmup  — the dense warm-up, ``TrainHyper(start_compress_step=k)``:
+              (a) reduced Llama-3-8B at W = 2, k = 2, 4 steps of PowerSGD
+              and of Top-K/int4, card against CPU under phase 3's rules,
+              error buffers exactly 0 after the dense steps on both, the
+              path's kernels launched only from step k on; (b) phase 6's
+              full width, k = 2, 5 PowerSGD steps beside 2 identity steps
+              from the same initial state: parameters and momentum
+              bit-equal after the dense steps, per-step ms, peak GiB, bits,
+              collective records and launches beside phase 6's; (c),
+              inside phase 5's group, 3 PowerSGD steps of
+              ``make_train_step`` with k = 1 against ``SimMesh(1)``.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after; the summary line gives each kernel's launches on every
@@ -150,6 +161,10 @@ WORKERS = 2
 TRAIN_STEPS = 5
 DIST_STEPS = 3
 SEQ = 1024
+WARMUP_K = 2          # phase 12: dense steps before compression
+WARMUP_STEPS = 4      # (a), reduced Llama-3-8B
+WARMUP_FULL_STEPS = 5 # (b), full width
+DIST_WARMUP_K = 1     # (c), inside phase 5's group
 
 # published peaks (NVIDIA data sheets): HBM bytes/s and fp32 (non-tensor) FLOP/s
 CARDS = [("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
@@ -771,17 +786,20 @@ def ef_apply_ragged(torch, ops, ef_kernel, ref):
 
 
 def parity_phase(torch, mods, name, make_compressor, check, workers=2,
-                 weights=None):
-    """Reduced Llama-3-8B, 3 steps, ``workers`` workers (2 sequences each)
-    under the scenario ``weights`` (``None``: uniform): the card (kernels)
+                 weights=None, steps=3, start_compress_step=0, after_step=None):
+    """Reduced Llama-3-8B, ``steps`` steps, ``workers`` workers (2
+    sequences each) under the scenario ``weights`` (``None``: uniform),
+    the first ``start_compress_step`` of them dense: the card (kernels)
     against the CPU (plain versions), from identical parameters and
     compressor state.  ``check(losses_cpu, losses_card, params_cpu,
-    params_card)`` raises on disagreement.  Returns the card's step, its
-    state after the 3 steps, the mesh and the data stream."""
+    params_card)`` raises on disagreement; ``after_step(device, i, ef)``,
+    if given, runs after each step.  Returns the card's step, its state
+    after the last step, the mesh and the data stream."""
     train, llama3_8b, SimMesh, MarkovLM, tree = mods
     cfg = llama3_8b.reduced_config()
     sim = SimMesh(workers)
-    hyper = train.TrainHyper(q_chunk=64, warmup_steps=2)
+    hyper = train.TrainHyper(q_chunk=64, warmup_steps=2,
+                             start_compress_step=start_compress_step)
     _, init = train.make_sim_train_step(cfg, sim, hyper, device="cpu",
                                         compressor=make_compressor())
     runs = {}
@@ -792,11 +810,13 @@ def parity_phase(torch, mods, name, make_compressor, check, workers=2,
         params, ef = tree.map(lambda x: x.to(dev), params), ef.to(dev)
         data = MarkovLM(vocab=cfg.vocab_size, seed=0, order=1)
         losses = []
-        for i in range(3):
+        for i in range(steps):
             toks = torch.tensor(data.sample(2 * workers, 128, step=i), device=dev)
             batch = sim.shard({"tokens": toks[:, :-1], "labels": toks[:, 1:]})
             params, ef, metrics = step(params, ef, batch, weights=weights)
             losses.append(metrics["lm_loss"].item())
+            if after_step is not None:
+                after_step(dev, i, ef)
         runs[dev] = (losses, tree.map(lambda x: x.cpu(), params))
     (l_cpu, p_cpu), (l_gpu, p_gpu) = runs["cpu"], runs["cuda"]
     check(name, l_cpu, l_gpu, tree.leaves(p_cpu), tree.leaves(p_gpu))
@@ -1179,20 +1199,21 @@ def bench_lm_zoo_parity(torch, bench, compressors, tree):
                 param_atol=SVD_PARAM_ATOL if rule == "svd" else 1e-4)
 
 
-def dist_run(torch, mods, cfg, mode, compressor, stats, batches):
+def dist_run(torch, mods, cfg, mode, compressor, stats, batches, hyper=None):
     """DIST_STEPS steps of one full-width path: ``mode`` "dist" through
     ``make_train_step`` on the process group, "sim" through
     ``make_sim_train_step`` on ``SimMesh(1)``, from the parameters and
-    factors ``init_state`` draws from seed 0.  Returns losses, step ms,
-    the run's peak GiB (above what was allocated before it) and the final
-    parameters."""
+    factors ``init_state`` draws from seed 0, under ``hyper`` (default
+    ``TrainHyper()``).  Returns losses, step ms, the run's peak GiB (above
+    what was allocated before it) and the final parameters."""
     train, tree, SimMesh, _ = mods
+    hyper = hyper or train.TrainHyper()
     if mode == "dist":
-        step, init = train.make_train_step(cfg, train.TrainHyper(),
-                                           compressor=compressor, stats=stats)
+        step, init = train.make_train_step(cfg, hyper, compressor=compressor,
+                                           stats=stats)
     else:
         sim = SimMesh(1)
-        step, init = train.make_sim_train_step(cfg, sim, train.TrainHyper(),
+        step, init = train.make_sim_train_step(cfg, sim, hyper,
                                                compressor=compressor, stats=stats)
         batches = [sim.shard(b) for b in batches]
     base = torch.cuda.memory_allocated()
@@ -1309,9 +1330,70 @@ def dist_phase(torch, mods, kernel_mods, cfg, compressors, CollectiveStats,
                     raise AssertionError(f"dist {path}: launches {launches}, "
                                          f"want {want}")
                 out[path] = launches
+            out["warmup"] = dist_warmup(torch, mods, kernel_mods, cfg, compressors,
+                                        CollectiveStats, pdist, n_buckets, smi,
+                                        batches)
         finally:
             tdist.destroy_process_group()
     return out
+
+
+def dist_warmup(torch, mods, kernel_mods, cfg, compressors, CollectiveStats,
+                pdist, n_buckets, smi, batches):
+    """Phase 12 (c), inside phase 5's group: DIST_STEPS PowerSGD steps with
+    ``start_compress_step=DIST_WARMUP_K`` through ``make_train_step``
+    against ``make_sim_train_step`` on ``SimMesh(1)`` (phase 3's rule; bit
+    equality expected, the largest difference printed).  While dense, a
+    step launches no low-rank kernel and records one reduce of the whole
+    gradient (one ``all_reduce`` for it, one for the loss); then
+    PowerSGD's.  Every launch count and the ``torch.distributed`` calls are
+    set to 0 just before the distributed run and read just after.  Returns
+    the launches."""
+    tree = mods[1]
+    k, n = DIST_WARMUP_K, DIST_STEPS
+    hyper = mods[0].TrainHyper(start_compress_step=k)
+    make = lambda: compressors.make_compressor("powersgd", rank=RANK)
+    sim_stats, stats = CollectiveStats(), CollectiveStats()
+    l_sim, ms_sim, _, p_sim = dist_run(torch, mods, cfg, "sim", make(), sim_stats,
+                                       batches, hyper)
+    torch.cuda.empty_cache()
+    reset_all_launches(kernel_mods)
+    pdist.reset_calls()
+    l_dist, ms_dist, peak_dist, p_dist = dist_run(torch, mods, cfg, "dist", make(),
+                                                  stats, batches, hyper)
+    launches = read_all_launches(kernel_mods)
+    real_calls = dict(pdist.CALLS)
+    p_sim, p_dist = tree.leaves(p_sim), tree.leaves(p_dist)
+    n_params = sum(p.numel() for p in p_dist)
+    check_powersgd_parity("powersgd warm-up", l_sim, l_dist, p_sim, p_dist,
+                          check="dist_vs_sim")
+    max_diff = max((a - b).abs().max().item() for a, b in zip(p_sim, p_dist))
+    del p_sim, p_dist
+    torch.cuda.empty_cache()
+    print(json.dumps({
+        "check": "warmup dist", "card": smi, "start_compress_step": k,
+        "steps": n, "losses_dist": l_dist, "losses_sim": l_sim,
+        "bit_equal": l_sim == l_dist and max_diff == 0.0,
+        "max_abs_param_diff": max_diff, "step_ms_dist": ms_dist,
+        "step_ms_sim": ms_sim, "peak_gib_dist": peak_dist,
+        "collectives": {"kinds": stats.kinds, "sizes": stats.sizes},
+        "dist_calls": real_calls, "launches": launches}), flush=True)
+    want_kinds = ["reduce"] * (k + 2 * (n - k))
+    if (stats.kinds != want_kinds or stats.sizes[:k] != [n_params] * k
+            or collective_records(stats) != collective_records(sim_stats)):
+        raise AssertionError(f"warmup dist: records {stats.kinds} {stats.sizes}, "
+                             f"want {want_kinds} with {k} dense reduce(s) of "
+                             f"{n_params} and the simulated step's records")
+    want_calls = {"all_reduce": 2 * k + 3 * (n - k), "all_gather": 0}
+    if real_calls != want_calls:
+        raise AssertionError(f"warmup dist: torch.distributed calls {real_calls}, "
+                             f"want {want_calls}")
+    want = {name: 0 for name in launches}
+    want.update(lowrank_project=(n - k) * n_buckets,
+                lowrank_backproject=(n - k) * n_buckets)
+    if launches != want:
+        raise AssertionError(f"warmup dist: launches {launches}, want {want}")
+    return launches
 
 
 # The zoo at full width (phase 8): Llama-3-8B, 2 layers, W = 2, 3 steps of
@@ -1998,6 +2080,169 @@ def weighted_resnet_phase(torch, pm, kernel_mods, unweighted_ms):
     return launches
 
 
+# The dense warm-up (phase 12): ``TrainHyper(start_compress_step=k)`` runs
+# the first k steps as one fused all-reduce of the whole gradient (error
+# buffers held at 0, the compressor state untouched), then the compressor.
+# (a) Phase 3's reduced Llama-3-8B at W = 2 over WARMUP_STEPS steps, card
+# against CPU under phase 3's rules, error buffers 0 after the dense steps
+# on both devices, the path's kernels launched only from step k on.  (b)
+# Phase 6's full width over WARMUP_FULL_STEPS steps beside WARMUP_K steps of
+# the identity compressor from the same initial state: parameters and
+# momentum bit-equal after the dense steps, per-step ms, peak GiB, bits,
+# records and launches.  (c) runs inside phase 5's group (``dist_warmup``).
+
+
+def error_is_zero(torch, tree, ef) -> bool:
+    return all(not bool(e.any()) for e in tree.leaves(ef.error))
+
+
+def warmup_small_phase(torch, pmods, compressors, kernel_mods, n_buckets):
+    """(a): reduced Llama-3-8B at W = 2 with ``start_compress_step=WARMUP_K``,
+    card against CPU.  Every launch count is set to 0 after each step and
+    read after each card step.  Returns {path: launches}."""
+    tree = pmods[4]
+    paths = {
+        "powersgd": (lambda: compressors.make_compressor("powersgd", rank=RANK),
+                     check_powersgd_parity,
+                     {"lowrank_project": n_buckets, "lowrank_backproject": n_buckets}),
+        "top_k_int4": (lambda: compressors.make_compressor(
+            "top_k", rank=RANK, wire_dtype="int4"), check_topk_parity,
+                       {"nibble_pack": 1, "nibble_unpack": 1})}
+    out = {}
+    for path, (make, check, per_step) in paths.items():
+        zero, launches = {"cpu": [], "cuda": []}, []
+
+        def after_step(dev, i, ef):
+            zero[dev].append(error_is_zero(torch, tree, ef))
+            if dev == "cuda":
+                launches.append(read_all_launches(kernel_mods))
+            reset_all_launches(kernel_mods)
+
+        parity_phase(torch, pmods, f"warmup {path} (k={WARMUP_K})", make, check,
+                     steps=WARMUP_STEPS, start_compress_step=WARMUP_K,
+                     after_step=after_step)
+        want_zero = [True] * WARMUP_K + [False] * (WARMUP_STEPS - WARMUP_K)
+        want = [{name: (per_step.get(name, 0) if i >= WARMUP_K else 0)
+                 for name in launches[0]} for i in range(WARMUP_STEPS)]
+        print(json.dumps({"check": "warmup reduced", "path": path,
+                          "start_compress_step": WARMUP_K,
+                          "error_zero_after_step": zero,
+                          "launches_per_step": launches}), flush=True)
+        if zero["cpu"] != want_zero or zero["cuda"] != want_zero:
+            raise AssertionError(f"warmup {path}: error buffers zero after the "
+                                 f"steps {zero}, want {want_zero}")
+        if launches != want:
+            raise AssertionError(f"warmup {path}: launches per step {launches}, "
+                                 f"want {want}")
+        out[f"reduced {path}"] = {name: sum(row[name] for row in launches)
+                                  for name in launches[0]}
+    return out
+
+
+def warmup_llama_phase(torch, mods, kernel_mods, cfg, compressors,
+                       CollectiveStats, n_buckets, psgd_run, smi):
+    """(b): phase 6's full width with ``start_compress_step=WARMUP_K`` over
+    WARMUP_FULL_STEPS steps, each step's launches, records and peak read
+    after it and set to 0 before it.  ``psgd_run`` holds phase 6's median
+    step ms and peak GiB.  Returns the run's launches."""
+    train, tree, SimMesh, MarkovLM = mods
+    sim = SimMesh(WORKERS)
+    data = MarkovLM(vocab=cfg.vocab_size, seed=0)
+    batches = []
+    for i in range(WARMUP_FULL_STEPS):
+        toks = torch.tensor(data.sample(WORKERS, SEQ, step=i), device="cuda")
+        batches.append(sim.shard({"tokens": toks[:, :-1], "labels": toks[:, 1:]}))
+    # the identity compressor's dense steps from the same initial state; its
+    # parameters and momentum wait on the host, so that the warm-up run
+    # below has the card to itself
+    step, init = train.make_sim_train_step(
+        cfg, sim, train.TrainHyper(),
+        compressor=compressors.make_compressor("identity"))
+    params, ef = init(torch.Generator("cuda").manual_seed(0))
+    for batch in batches[:WARMUP_K]:
+        params, ef, _ = step(params, ef, batch)
+    ident = [x.cpu() for t in (params, ef.momentum) for x in tree.leaves(t)]
+    del step, init, params, ef
+    torch.cuda.empty_cache()
+
+    stats = CollectiveStats()
+    step, init = train.make_sim_train_step(
+        cfg, sim, train.TrainHyper(start_compress_step=WARMUP_K),
+        compressor=compressors.make_compressor("powersgd", rank=RANK),
+        stats=stats)
+    params, ef = init(torch.Generator("cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in tree.leaves(params))
+    torch.cuda.synchronize()
+    rows, bit_equal = [], None
+    for i, batch in enumerate(batches):
+        stats.reset()
+        reset_all_launches(kernel_mods)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, ef, metrics = step(params, ef, batch)
+        loss = metrics["lm_loss"].item()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rows.append({"step": i, "dense": i < WARMUP_K, "lm_loss": loss,
+                     "step_ms": ms,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "bits_per_worker": metrics["bits_per_worker"],
+                     "launches": read_all_launches(kernel_mods),
+                     "records": collective_records(stats),
+                     "error_zero": error_is_zero(torch, tree, ef)})
+        print(f"warmup step {i} ({'dense' if i < WARMUP_K else 'compressed'}) "
+              f"lm_loss={loss:.6f} step_ms={ms:.1f}", flush=True)
+        if i == WARMUP_K - 1:
+            mine = [x for t in (params, ef.momentum) for x in tree.leaves(t)]
+            bit_equal = all(torch.equal(x, y.to(x.device))
+                            for x, y in zip(mine, ident))
+            del mine, ident
+    dense = [r for r in rows if r["dense"]]
+    comp = [r for r in rows if not r["dense"]]
+    launches = {name: sum(r["launches"][name] for r in rows) for name in rows[0]["launches"]}
+    summary = {
+        "check": "warmup llama", "card": smi, "workers": WORKERS,
+        "start_compress_step": WARMUP_K, "steps": rows,
+        "bit_equal_to_identity_after_dense_steps": bit_equal,
+        "median_dense_step_ms": statistics.median(r["step_ms"] for r in dense),
+        "median_compressed_step_ms": statistics.median(r["step_ms"] for r in comp),
+        "phase6_median_step_ms": psgd_run["median_step_ms"],
+        "peak_gib_dense": max(r["peak_gib"] for r in dense),
+        "peak_gib_compressed": max(r["peak_gib"] for r in comp),
+        "phase6_peak_gib": psgd_run["peak_gib"], "launches": launches}
+    print(json.dumps(summary), flush=True)
+    problems = []
+    if not bit_equal:
+        problems.append("parameters or momentum differ from the identity run's "
+                        "after the dense steps")
+    if [r["error_zero"] for r in rows] != [True] * WARMUP_K + [False] * (
+            WARMUP_FULL_STEPS - WARMUP_K):
+        problems.append("error buffers not 0 exactly through the dense steps")
+    for r in rows:
+        lowrank = 0 if r["dense"] else n_buckets
+        want = {name: 0 for name in r["launches"]}
+        want.update(lowrank_project=lowrank, lowrank_backproject=lowrank)
+        if r["launches"] != want:
+            problems.append(f"step {r['step']}: launches {r['launches']}, want {want}")
+        kinds, sizes = r["records"][0], r["records"][1]
+        if r["dense"]:
+            ok = (kinds, sizes, r["bits_per_worker"]) == (
+                ["reduce"], [n_params], 32 * n_params)
+        else:
+            ok = kinds == ["reduce", "reduce"] and r["bits_per_worker"] < 32 * n_params
+        if not ok:
+            problems.append(f"step {r['step']}: records {kinds} {sizes}, bits "
+                            f"{r['bits_per_worker']}")
+    if not (math.isfinite(sum(r["lm_loss"] for r in rows))
+            and all_finite(torch, tree, params, ef.error, ef.momentum, ef.comp)):
+        problems.append("non-finite state or losses")
+    del step, init, params, ef, batches
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError(f"warmup llama: {problems}")
+    return launches
+
+
 def int4_chunk(torch, cfg, model, matrixize, tree, workers, scheme="top_k"):
     """(chunk, parts, (workers, codes)): the int4 chunk ``scheme``'s gather
     packs each step on ``cfg``, the payload parts it plans from (meta
@@ -2289,6 +2534,16 @@ def main() -> None:
         torch, pm, kernel_mods, paper_ms["resnet18"])
     print(f"weighted: {time.perf_counter() - t_weighted:.1f} s")
 
+    # -- 12. the dense warm-up ------------------------------------------------
+    t_warmup = time.perf_counter()
+    warmup_launches = warmup_small_phase(
+        torch, pmods, compressors, kernel_mods,
+        len(bench.model_buckets(llama3_8b.reduced_config())))
+    warmup_launches["llama powersgd"] = warmup_llama_phase(
+        torch, tmods, kernel_mods, cfg, compressors, CollectiveStats,
+        len(buckets), psgd_run, smi)
+    print(f"warmup: {time.perf_counter() - t_warmup:.1f} s (and (c) in phase 5)")
+
     # launches of each kernel on every path this run drove
     paths = {"llama powersgd": psgd, "llama top_k_int4": topk,
              **{f"dist {k}": v for k, v in dist_launches.items()},
@@ -2297,7 +2552,8 @@ def main() -> None:
              "table7": table_launches.pop("table7_lstm"),
              **{f"tables {k}": v for k, v in table_launches.items()},
              **paper_launches,
-             **{f"weighted {k}": v for k, v in weighted_launches.items()}}
+             **{f"weighted {k}": v for k, v in weighted_launches.items()},
+             **{f"warmup {k}": v for k, v in warmup_launches.items()}}
     by_path = lambda kernel: {p: v[kernel] for p, v in paths.items() if v[kernel]}
 
     summary = []

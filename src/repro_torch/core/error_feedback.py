@@ -17,19 +17,38 @@ identical on every worker after each all-reduced update — are held once.
 Weight decay follows the paper (§5): coupled, added to the gradient before
 compression, and not applied to uncompressed (norm) parameters.
 
-Not ported yet: ``start_compress_step`` > 0 (dense warmup, ROADMAP queue A,
-item 7) and ``staleness="one_step"`` (item 12).
+``start_compress_step=k`` delays compression, as the PyTorch DDP PowerSGD
+hook's ``start_powerSGD_iter`` does: for the first k steps the deltas are
+aggregated dense (one fused :meth:`MeshCtx.pmean_flat` on the compressor's
+wire) and the reconstruction is the delta itself, so the error buffers
+stay exactly zero and the trajectory is bit-identical to the identity
+compressor's.  Compression and error feedback start at step k.  The step
+counter is a host ``int``, so the switch is a plain branch and only the
+branch taken runs (the JAX package's ``lax.cond`` traces both).
+
+Declared divergence (``CollectiveStats``): the JAX package records at trace
+time, and its ``cond`` traces both branches, so one warm-up step there
+records the dense reduce and the compressor's collectives together.  The
+port records what each step ran: the dense reduce while ``step < k``, the
+compressor's collectives afterwards.
+
+Elastic rescaling of the per-worker error buffers to another worker count
+(:func:`rescale_error_buffers`) and the rank-transition hook
+(:func:`replace_comp`) are ported beside the step.
+
+Not ported yet: ``staleness="one_step"`` (ROADMAP queue A, item 12).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Optional
 
 import torch
 
 from repro_torch import tree
-from repro_torch.core import engine
+from repro_torch.core import engine, matrixize
 from repro_torch.core.compressors import Compressor
 from repro_torch.core.dist import SINGLE, MeshCtx
 from repro_torch.kernels import ops
@@ -66,6 +85,71 @@ def init_state(compressor: Compressor, params, specs, *, lead=(),
         step=0)
 
 
+def rescale_path(w_old: int, w_new: int) -> str:
+    """Which :func:`rescale_error_buffers` branch a ``w_old → w_new``
+    rescale takes: ``"identity"`` / ``"grow"`` / ``"shrink"`` /
+    ``"coprime-mean"``."""
+    if w_new == w_old:
+        return "identity"
+    if w_new % w_old == 0:
+        return "grow"
+    if w_old % w_new == 0:
+        return "shrink"
+    return "coprime-mean"
+
+
+def rescale_error_buffers(error, workers: int):
+    """Re-shard a stacked per-worker error-buffer tree (a leading worker dim
+    ``W_old`` on every leaf) to ``workers`` workers, preserving the
+    worker-mean of the buffers, which is what Algorithm 2 aggregates:
+
+    * ``workers == W_old``: ``error`` itself.
+    * grow (``workers % W_old == 0``): each buffer repeated to its
+      ``workers / W_old`` consecutive successors, bit-exact.
+    * shrink (``W_old % workers == 0``): each new buffer the mean of the
+      ``W_old / workers`` consecutive buffers it absorbs.
+    * otherwise every new buffer is the global worker-mean, with a
+      ``UserWarning``.
+
+    Every new buffer owns its storage (the step updates error buffers in
+    place, so a broadcast view would tie workers together).
+    """
+    leaves = tree.leaves(error)
+    if not leaves:
+        return error
+    w_old = leaves[0].shape[0]
+    for e in leaves:
+        if e.shape[0] != w_old:
+            raise ValueError(f"error buffers disagree on the worker dim: "
+                             f"{tuple(e.shape)} against {w_old} workers")
+    path = rescale_path(w_old, workers)
+    if path == "identity":
+        return error
+    if path == "coprime-mean":
+        warnings.warn(
+            f"coprime EF rescale {w_old} -> {workers}: every new buffer is "
+            f"the global worker-mean (per-worker identity lost; mean "
+            f"preserved)", stacklevel=2)
+
+    def leaf(e):
+        if path == "grow":
+            return torch.repeat_interleave(e, workers // w_old, dim=0)
+        if path == "shrink":
+            k = w_old // workers
+            return e.reshape((workers, k) + tuple(e.shape[1:])).mean(dim=1)
+        mean = e.mean(dim=0, keepdim=True)
+        return mean.expand((workers,) + tuple(e.shape[1:])).contiguous()
+
+    return tree.map(leaf, error)
+
+
+def replace_comp(state: EFState, comp) -> EFState:
+    """``state`` with a new compressor state, the rank-transition hook:
+    error buffers, momentum and the step counter pass through as the same
+    objects."""
+    return dataclasses.replace(state, comp=comp)
+
+
 def apply_updates(compressor: Compressor, params, grads, state: EFState,
                   specs, *, lr, momentum: float = 0.9,
                   weight_decay: float = 0.0, ctx: MeshCtx = SINGLE,
@@ -77,6 +161,10 @@ def apply_updates(compressor: Compressor, params, grads, state: EFState,
     gets ``engine.step_seed(seed, state.step)``, the twin of the JAX
     package's ``fold_in(key, state.step)``.
 
+    ``start_compress_step=k`` aggregates the steps with ``state.step < k``
+    dense (see the module docstring); with the default 0 every step
+    compresses.
+
     ``grads`` are the per-worker gradients (``ctx.lead`` worker dims); they
     are consumed: their storage becomes ``new_state.error``.  ``params`` and
     ``state.momentum`` are updated in place and returned.
@@ -85,10 +173,6 @@ def apply_updates(compressor: Compressor, params, grads, state: EFState,
         raise NotImplementedError(
             f"staleness={staleness!r} is not ported yet (ROADMAP queue A, "
             f"item 12)")
-    if start_compress_step:
-        raise NotImplementedError(
-            "start_compress_step > 0 (dense warmup) is not ported yet "
-            "(ROADMAP queue A, item 7)")
     with torch.no_grad():
         for g, p, spec in zip(tree.leaves(grads), tree.leaves(params),
                               tree.leaves(specs)):
@@ -96,14 +180,36 @@ def apply_updates(compressor: Compressor, params, grads, state: EFState,
                 g.add_(weight_decay * p)
         # Δ_w = g_w + e_w, in the gradient buffers
         deltas = tree.map(lambda g, e: g.add_(e), grads, state.error)
-        out = compressor.step(
-            deltas, state.comp, specs, ctx=ctx,
-            seed=None if seed is None else engine.step_seed(seed, state.step))
+        if state.step < start_compress_step:
+            out = _dense_step(compressor, deltas, state.comp, ctx)
+        else:
+            out = compressor.step(
+                deltas, state.comp, specs, ctx=ctx,
+                seed=None if seed is None else engine.step_seed(seed, state.step))
         params, new_momentum = ops.ef_apply_tree(
             params, out.agg, state.momentum, lr=lr, momentum=momentum)
         # e_w = Δ_w − recon, in the same buffers.  Last: without data axes
-        # an uncompressed leaf's aggregate may be a view of its Δ.
+        # an uncompressed leaf's aggregate may be a view of its Δ.  A dense
+        # step's recon is Δ itself: Δ − Δ, so a non-finite Δ stays so.
         new_error = tree.map(lambda d, rc: d.sub_(rc), deltas, out.recon)
     new_state = EFState(error=new_error, momentum=new_momentum,
                         comp=out.state, step=state.step + 1)
     return params, new_state, {"bits_per_worker": out.bits_per_worker}
+
+
+def _dense_step(compressor: Compressor, deltas, comp_state,
+                ctx: MeshCtx) -> engine.CompressOut:
+    """A warm-up step: the deltas reduced in one fused dense all-reduce on
+    the compressor's wire, the reconstruction the deltas themselves, the
+    compressor state passed through untouched.  ``bits_per_worker`` counts
+    every leaf at 32 bits per float, per worker (``ctx.lead`` stripped)."""
+    leaves = tree.leaves(deltas)
+    agg = ctx.pmean_flat(leaves,
+                         wire_dtype=getattr(compressor, "wire_dtype", "auto"),
+                         max_chunk_bytes=getattr(compressor, "max_chunk_bytes",
+                                                 None))
+    nl = len(ctx.lead)
+    bits = sum(matrixize.uncompressed_floats(tuple(d.shape[nl:])) * 32
+               for d in leaves)
+    return engine.CompressOut(agg=tree.unflatten(deltas, agg), recon=deltas,
+                              state=comp_state, bits_per_worker=bits)

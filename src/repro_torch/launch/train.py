@@ -10,6 +10,11 @@
   on its own batch shard, and the compressor aggregates over the stacked
   worker dim.
 
+Both take :class:`TrainHyper`; ``start_compress_step=k`` runs the first k
+steps dense (one fused all-reduce of the whole gradient, error buffers
+held at zero) before the compressor takes over, as
+:func:`repro_torch.core.error_feedback.apply_updates` describes.
+
 The command-line entry point and checkpointing wait for ROADMAP queue A,
 item 10; the model axis (tensor parallelism) for ROADMAP queue A, item 14.
 """
@@ -43,6 +48,7 @@ class TrainHyper:
     orthogonalizer: str = "gram_schmidt"
     bucketing: str = "auto"         # "auto"/"on" = bucketed engine, "off" = per-leaf
     wire_dtype: str = "auto"
+    start_compress_step: int = 0    # dense warm-up steps before compression
 
 
 def _schedule(hyper: TrainHyper, step: int) -> float:
@@ -120,7 +126,7 @@ def _make_step(cfg: ModelConfig, hyper: TrainHyper,
         params, ef_state, aux = error_feedback.apply_updates(
             compressor, params, grads, ef_state, mspec_tree, lr=lr,
             momentum=hyper.momentum, weight_decay=hyper.weight_decay, ctx=ctx,
-            seed=seed)
+            seed=seed, start_compress_step=hyper.start_compress_step)
         metrics = {"lm_loss": loss, "lr": lr,
                    "bits_per_worker": aux["bits_per_worker"]}
         return params, ef_state, metrics

@@ -23,6 +23,11 @@ one worker each, started once for the whole file.
 * (d) The entry point's device rules: the CUDA default raises where there
   is no card, and a process group whose backend does not carry the
   device's tensors raises.
+* (f) The dense warm-up: 4 PowerSGD steps with ``start_compress_step=2``
+  against the reference's at W = 4 under (b)'s tolerances; error buffers
+  exactly 0 after the dense steps, replicas bit-identical, and a dense step
+  records one reduce of the whole gradient and calls ``all_reduce`` once
+  for it and once for the loss.
 * (e) Two more schemes of the zoo, 2 steps each with one base seed:
   ``random_k`` (shared-seed draws on a reduce) and ``sign_norm`` (a
   gather of int8 signs and float norms).  Every rank draws the same
@@ -75,6 +80,7 @@ pytestmark = pytest.mark.timeout(180)
 W, BATCH, SEQ = 4, 8, 32
 STEPS = {"powersgd": 5, "top_k": 3}
 ZOO_STEPS = {"random_k": 2, "sign_norm": 2}
+WARMUP_STEPS, WARMUP_K = 4, 2   # (f): PowerSGD, dense through step k − 1
 ZOO_SEED = 7          # the base seed every rank passes to the step
 WIRES = ("auto", "float32", "int8", "int4")
 RENDEZVOUS_S = 60     # init_process_group and every collective
@@ -91,8 +97,9 @@ def _compressor(path):
     return None
 
 
-def _hyper():
-    return train.TrainHyper(q_chunk=16, warmup_steps=2)
+def _hyper(start_compress_step=0):
+    return train.TrainHyper(q_chunk=16, warmup_steps=2,
+                            start_compress_step=start_compress_step)
 
 
 def _batches(vocab, steps):
@@ -173,17 +180,18 @@ def _rank_backend(rank, inputs):
     return out
 
 
-def _rank_steps(rank, path, start, batches):
-    """(b), (c): the distributed step on this rank's shard of each batch."""
+def _rank_steps(rank, path, start, batches, start_compress_step=0):
+    """(b), (c), (f): the distributed step on this rank's shard of each
+    batch."""
     cfg = llama3_8b.reduced_config()
     stats = dist.CollectiveStats()
-    step, _ = train.make_train_step(cfg, _hyper(), _compressor(path),
-                                    stats=stats, device="cpu")
+    step, _ = train.make_train_step(cfg, _hyper(start_compress_step),
+                                    _compressor(path), stats=stats, device="cpu")
     params = bridge.to_torch(start["params"])
     ef = EFState(error=tree.map(torch.zeros_like, params),
                  momentum=tree.map(torch.zeros_like, params),
                  comp=bridge.to_torch(start["comp"]))
-    losses, records = [], []
+    losses, records, calls, error_zero = [], [], [], []
     dist.reset_calls()
     for b in batches:
         stats.reset()
@@ -192,8 +200,11 @@ def _rank_steps(rank, path, start, batches):
         params, ef, m = step(params, ef, shard)
         losses.append(m["lm_loss"].item())
         records.append(_records(stats))
+        calls.append(dict(dist.CALLS))
+        error_zero.append(all(not e.any() for e in tree.leaves(ef.error)))
     out = {"losses": losses, "records": records, "step": ef.step,
-           "calls": dict(dist.CALLS), "error": bridge.to_numpy(ef.error),
+           "calls": dict(dist.CALLS), "calls_after_step": calls,
+           "error_zero": error_zero, "error": bridge.to_numpy(ef.error),
            "digests": {k: _digest(t) for k, t in (
                ("params", params), ("momentum", ef.momentum), ("q", ef.comp))}}
     if rank == 0:
@@ -260,6 +271,9 @@ def _rank_main(rank, rdzv, inputs, results):
         for name in ZOO_STEPS:
             out[name] = _rank_zoo(rank, name, inputs["start"]["powersgd"]["params"],
                                   inputs["batches"][name])
+        out["warmup"] = _rank_steps(rank, "powersgd", inputs["start"]["warmup"],
+                                    inputs["batches"]["warmup"],
+                                    start_compress_step=WARMUP_K)
         results.put((rank, out))
     except BaseException:
         results.put((rank, traceback.format_exc()))
@@ -281,7 +295,7 @@ def _np_tree(t, index=None):
         t, is_leaf=lambda x: x is None)
 
 
-def _reference(path):
+def _reference(path, start_compress_step=0):
     """The reference's W-worker step on ``path`` and its initial state."""
     import jax
 
@@ -296,7 +310,8 @@ def _reference(path):
             if path == "top_k" else None)
     step, init = jtrain.make_sim_train_step(
         jllama.reduced_config(), sim,
-        jtrain.TrainHyper(remat=False, q_chunk=16, warmup_steps=2),
+        jtrain.TrainHyper(remat=False, q_chunk=16, warmup_steps=2,
+                          start_compress_step=start_compress_step),
         compressor=comp, stats=jstats)
     params, ef = init(jax.random.key(0))
     return sim, step, jstats, params, ef
@@ -318,7 +333,9 @@ def _run_ranks():
     """Start the W ranks, run the reference meanwhile, collect both."""
     vocab = llama3_8b.reduced_config().vocab_size
     batches = {p: _batches(vocab, n) for p, n in {**STEPS, **ZOO_STEPS}.items()}
+    batches["warmup"] = _batches(vocab, WARMUP_STEPS)
     refs = {p: _reference(p) for p in STEPS}
+    refs["warmup"] = _reference("powersgd", start_compress_step=WARMUP_K)
     starts = {p: {"params": _np_tree(r[3], 0), "comp": _np_tree(r[4].comp, 0)}
               for p, r in refs.items()}
     inputs = {"backend": _backend_inputs(), "start": starts, "batches": batches}
@@ -331,7 +348,7 @@ def _run_ranks():
         deadline = time.monotonic() + RESULTS_S
         try:
             # the reference runs while the ranks do
-            reference = {p: _reference_steps(*refs[p], batches[p]) for p in STEPS}
+            reference = {p: _reference_steps(*refs[p], batches[p]) for p in refs}
             ranks = {}
             while len(ranks) < W:
                 try:
@@ -540,6 +557,63 @@ def test_zoo_replicas_and_draws_agree(run, name):
                           tree.leaves(bridge.to_numpy(params))):
         np.testing.assert_allclose(g, w_, atol=PARAM_ATOL, rtol=0,
                                    err_msg=str(list(p)))
+
+
+# ---------------------------------------------------------------------------
+# (f) the dense warm-up
+# ---------------------------------------------------------------------------
+
+def test_warmup_steps_match_reference(run):
+    """Losses rtol 1e-5 and parameters atol 2e-6; momentum, Q factors and
+    rank i's error buffer (the reference's ``error[i]``) atol 1e-5, as in
+    (b).  Every rank's error buffers are exactly 0 after the dense steps
+    and move from step k on."""
+    ref = run["reference"]["warmup"]
+    for r in range(W):
+        got = run["ranks"][r]["warmup"]
+        np.testing.assert_allclose(got["losses"], ref["losses"], rtol=LOSS_RTOL)
+        assert got["step"] == WARMUP_STEPS
+        assert got["error_zero"] == [True] * WARMUP_K + [False] * (
+            WARMUP_STEPS - WARMUP_K)
+        for (p, g), w_ in zip(tree.items(got["error"]), tree.leaves(ref["error"])):
+            np.testing.assert_allclose(g, w_[r], atol=STATE_ATOL, rtol=0,
+                                       err_msg=f"rank {r} {list(p)}")
+    got = run["ranks"][0]["warmup"]
+    for name in ("params", "momentum", "q"):
+        for (p, g), w_ in zip(tree.items(got[name]), tree.leaves(ref[name])):
+            if w_ is None:
+                assert g is None, p
+                continue
+            atol = PARAM_ATOL if name == "params" else STATE_ATOL
+            np.testing.assert_allclose(g, w_, atol=atol, rtol=0,
+                                       err_msg=f"{name} {list(p)}")
+
+
+def test_warmup_replicas_stay_identical(run):
+    digests = [run["ranks"][r]["warmup"]["digests"] for r in range(W)]
+    assert all(d == digests[0] for d in digests), digests
+
+
+def test_warmup_collectives(run):
+    """A dense step records one reduce of the whole gradient (one float32
+    wire chunk) and calls ``all_reduce`` for it and for the loss; a
+    compressed step records PowerSGD's two reduces, as in (b).  A dense and
+    a compressed step together record what the reference's one trace
+    records: its switch traces both branches."""
+    ref = run["reference"]["warmup"]["records"]
+    n_params = sum(x.size for x in tree.leaves(run["inputs"]["start"]["warmup"]["params"]))
+    for r in range(W):
+        got = run["ranks"][r]["warmup"]
+        dense, compressed = got["records"][0], got["records"][WARMUP_K]
+        assert got["records"] == [dense] * WARMUP_K + [compressed] * (
+            WARMUP_STEPS - WARMUP_K)
+        assert dense[0] == ["reduce"] and dense[1] == [n_params]
+        assert compressed == run["ranks"][r]["powersgd"]["records"][0]
+        assert tuple(a + b for a, b in zip(dense, compressed)) == ref
+        per_step = [c["all_reduce"] for c in got["calls_after_step"]]
+        assert np.diff([0] + per_step).tolist() == [2] * WARMUP_K + [3] * (
+            WARMUP_STEPS - WARMUP_K)
+        assert got["calls"]["all_gather"] == 0
 
 
 # ---------------------------------------------------------------------------
