@@ -17,7 +17,9 @@ Phases, in order; any failure raises and the script exits non-zero:
               and the memory-bandwidth bound.  Then ranks 1, 3, 4, 17, 32,
               B = 1, an input one float past a 16-byte boundary, and the
               ragged 2-D input (1000, 1023) (timed by graph replay beside
-              ``torch.mm``), and, held without timing, the slabs the other
+              ``torch.mm``), the six slabs again at ranks 1 and 4 (phase
+              13's schedule runs them there; graph replay beside one
+              ``torch.bmm`` and the bound), and, held without timing, the slabs the other
               paths give the kernels: the six parameter slabs of phase 5
               and every matrix leaf of the per-leaf PowerSGD path (Llama at
               W = 2, the LM at W = 4), and the five bucket slabs of the
@@ -122,6 +124,22 @@ Phases, in order; any failure raises and the script exits non-zero:
               collective records and launches beside phase 6's; (c),
               inside phase 5's group, 3 PowerSGD steps of
               ``make_train_step`` with k = 1 against ``SimMesh(1)``.
+13. adaptive — ``TrainHyper(rank_schedule=..., track_residual=True)`` with
+              a ``RankController`` in the loop and ``replace_comp`` on each
+              switch: (a) phase 6's full width, ``ADAPTIVE_SCHEDULE`` over
+              6 steps (ranks 2, 2, 4, 4, 1, 1), per step the rank, ms,
+              residual ratio, bits (32 · payload floats at the step's
+              ranks), 2 reduces sized to the rank, 6 + 6 low-rank launches
+              and peak GiB; the retained factor columns bit for bit across
+              each switch, error buffers and momentum untouched by it; the
+              residual pass timed alone at the six bucket slabs; (b)
+              reduced Llama-3-8B at W = 2, the staircase and
+              ``ADAPTIVE_RESIDUAL``, card against CPU under phase 3's
+              rules: equal rank histories, residual ratios within 1e-4
+              relative, each residual decision's margin to its thresholds;
+              (c), inside phase 5's group, 4 steps of ``make_train_step``
+              under ``DIST_ADAPTIVE_SCHEDULE`` against ``SimMesh(1)``, bit
+              for bit.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after; the summary line gives each kernel's launches on every
@@ -1199,13 +1217,20 @@ def bench_lm_zoo_parity(torch, bench, compressors, tree):
                 param_atol=SVD_PARAM_ATOL if rule == "svd" else 1e-4)
 
 
-def dist_run(torch, mods, cfg, mode, compressor, stats, batches, hyper=None):
-    """DIST_STEPS steps of one full-width path: ``mode`` "dist" through
+def dist_run(torch, mods, cfg, mode, compressor, stats, batches, hyper=None,
+             adaptive=None):
+    """One step per batch of one full-width path: ``mode`` "dist" through
     ``make_train_step`` on the process group, "sim" through
     ``make_sim_train_step`` on ``SimMesh(1)``, from the parameters and
     factors ``init_state`` draws from seed 0, under ``hyper`` (default
-    ``TrainHyper()``).  Returns losses, step ms, the run's peak GiB (above
-    what was allocated before it) and the final parameters."""
+    ``TrainHyper()``).  With ``adaptive`` (the port's ``powersgd`` and
+    ``error_feedback`` modules) a ``RankController`` of
+    ``hyper.rank_schedule`` runs before each step (``controlled_switch``,
+    fed the previous step's residual).  Returns losses, step ms, the run's
+    peak GiB (above what was allocated before it), the final parameters,
+    and the run: per step the rank, loss, residual ratio, ms and the
+    (kinds, sizes) of its collective records; the final EF state; the
+    controller's history."""
     train, tree, SimMesh, _ = mods
     hyper = hyper or train.TrainHyper()
     if mode == "dist":
@@ -1216,25 +1241,37 @@ def dist_run(torch, mods, cfg, mode, compressor, stats, batches, hyper=None):
         step, init = train.make_sim_train_step(cfg, sim, hyper,
                                                compressor=compressor, stats=stats)
         batches = [sim.shard(b) for b in batches]
+    ctl = adaptive[0].RankController(hyper.rank_schedule) if adaptive else None
     base = torch.cuda.memory_allocated()
     params, ef = init(torch.Generator("cuda").manual_seed(0))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    losses, step_ms = [], []
-    for batch in batches:
+    rows, residual = [], None
+    for i, batch in enumerate(batches):
+        if ctl is not None:
+            ef, _, _ = controlled_switch(torch, tree, adaptive[1], ctl, ef, i,
+                                         residual)
+        n0 = len(stats.kinds)
         t0 = time.perf_counter()
         params, ef, metrics = step(params, ef, batch)
-        losses.append(metrics["lm_loss"].item())
+        loss = metrics["lm_loss"].item()
+        if "residual_ratio" in metrics:
+            residual = metrics["residual_ratio"].item()
         torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
+        rows.append({"rank": ctl and ctl.rank, "lm_loss": loss,
+                     "residual_ratio": residual,
+                     "step_ms": (time.perf_counter() - t0) * 1e3,
+                     "records": [stats.kinds[n0:], stats.sizes[n0:]]})
     peak = (torch.cuda.max_memory_allocated() - base) / 2**30
-    if ef.step != DIST_STEPS or not all(math.isfinite(v) for v in losses):
+    losses = [r["lm_loss"] for r in rows]
+    if ef.step != len(batches) or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"dist {mode}: step {ef.step}, losses {losses}")
-    return losses, step_ms, peak, params
+    run = {"steps": rows, "ef": ef, "history": ctl and list(ctl.history)}
+    return losses, [r["step_ms"] for r in rows], peak, params, run
 
 
 def dist_phase(torch, mods, kernel_mods, cfg, compressors, CollectiveStats,
-               pdist, n_buckets, smi):
+               pdist, n_buckets, smi, adaptive):
     """``make_train_step`` over a real NCCL group of world size 1 against
     ``make_sim_train_step`` on ``SimMesh(1)``, for PowerSGD and Top-K on
     the int4 gather wire, held as the card is held against the CPU
@@ -1242,15 +1279,18 @@ def dist_phase(torch, mods, kernel_mods, cfg, compressors, CollectiveStats,
     PowerSGD parameters within 1e-4, Top-K parameters under the flip rule)
     with the simulated step in the CPU's place.  Every launch count and the
     count of ``torch.distributed`` calls are set to 0 just before the
-    distributed run and read just after.  Returns {path: launches}."""
+    distributed run and read just after.  Then phase 12 (c) and phase 13
+    (c) in the same group (``adaptive``: the port's ``powersgd`` and
+    ``error_feedback`` modules).  Returns {path: launches}."""
     import torch.distributed as tdist
 
     tree, MarkovLM = mods[1], mods[3]
     data = MarkovLM(vocab=cfg.vocab_size, seed=0)
-    batches = []
-    for i in range(DIST_STEPS):
+    all_batches = []
+    for i in range(max(DIST_STEPS, DIST_ADAPTIVE_STEPS)):
         toks = torch.tensor(data.sample(1, SEQ, step=i), device="cuda")
-        batches.append({"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+        all_batches.append({"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    batches = all_batches[:DIST_STEPS]
     # path: (compressor, parity rule, kernel launches per step, (reduces,
     # gathers) recorded per step, torch.distributed calls per step: the
     # loss's all-reduce besides the compressor's, and a quantized gather's
@@ -1278,12 +1318,12 @@ def dist_phase(torch, mods, kernel_mods, cfg, compressors, CollectiveStats,
                   flush=True)
             for path, (make, check, per_step, budget, calls) in paths.items():
                 sim_stats, stats = CollectiveStats(), CollectiveStats()
-                l_sim, ms_sim, peak_sim, p_sim = dist_run(
+                l_sim, ms_sim, peak_sim, p_sim, _ = dist_run(
                     torch, mods, cfg, "sim", make(), sim_stats, batches)
                 torch.cuda.empty_cache()
                 reset_all_launches(kernel_mods)
                 pdist.reset_calls()
-                l_dist, ms_dist, peak_dist, p_dist = dist_run(
+                l_dist, ms_dist, peak_dist, p_dist, _ = dist_run(
                     torch, mods, cfg, "dist", make(), stats, batches)
                 launches = read_all_launches(kernel_mods)
                 real_calls = dict(pdist.CALLS)
@@ -1333,6 +1373,9 @@ def dist_phase(torch, mods, kernel_mods, cfg, compressors, CollectiveStats,
             out["warmup"] = dist_warmup(torch, mods, kernel_mods, cfg, compressors,
                                         CollectiveStats, pdist, n_buckets, smi,
                                         batches)
+            out["adaptive"] = dist_adaptive(torch, mods, kernel_mods, cfg, adaptive,
+                                            CollectiveStats, pdist, n_buckets, smi,
+                                            all_batches)
         finally:
             tdist.destroy_process_group()
     return out
@@ -1354,12 +1397,12 @@ def dist_warmup(torch, mods, kernel_mods, cfg, compressors, CollectiveStats,
     hyper = mods[0].TrainHyper(start_compress_step=k)
     make = lambda: compressors.make_compressor("powersgd", rank=RANK)
     sim_stats, stats = CollectiveStats(), CollectiveStats()
-    l_sim, ms_sim, _, p_sim = dist_run(torch, mods, cfg, "sim", make(), sim_stats,
+    l_sim, ms_sim, _, p_sim, _ = dist_run(torch, mods, cfg, "sim", make(), sim_stats,
                                        batches, hyper)
     torch.cuda.empty_cache()
     reset_all_launches(kernel_mods)
     pdist.reset_calls()
-    l_dist, ms_dist, peak_dist, p_dist = dist_run(torch, mods, cfg, "dist", make(),
+    l_dist, ms_dist, peak_dist, p_dist, _ = dist_run(torch, mods, cfg, "dist", make(),
                                                   stats, batches, hyper)
     launches = read_all_launches(kernel_mods)
     real_calls = dict(pdist.CALLS)
@@ -1393,6 +1436,69 @@ def dist_warmup(torch, mods, kernel_mods, cfg, compressors, CollectiveStats,
                 lowrank_backproject=(n - k) * n_buckets)
     if launches != want:
         raise AssertionError(f"warmup dist: launches {launches}, want {want}")
+    return launches
+
+
+def dist_adaptive(torch, mods, kernel_mods, cfg, adaptive, CollectiveStats, pdist,
+                  n_buckets, smi, batches):
+    """Phase 13 (c), inside phase 5's group: DIST_ADAPTIVE_STEPS PowerSGD
+    steps of ``make_train_step`` under DIST_ADAPTIVE_SCHEDULE with
+    ``track_residual``, a controller in the loop reading each step's
+    residual, against ``make_sim_train_step`` on ``SimMesh(1)`` driven the
+    same way (``dist_run``): bit-equal losses, residuals, parameters and
+    factors.  Each step records 2 reduces sized to its rank and calls
+    ``all_reduce`` 4 times (P, Q, the loss, the residual).  Launch counts
+    and the ``torch.distributed`` calls are set to 0 just before the
+    distributed run and read just after.  Returns the launches."""
+    tree = mods[1]
+    n = DIST_ADAPTIVE_STEPS
+    hyper = mods[0].TrainHyper(rank_schedule=DIST_ADAPTIVE_SCHEDULE,
+                               track_residual=True)
+    runs = {}
+    for mode in ("sim", "dist"):
+        if mode == "dist":
+            reset_all_launches(kernel_mods)
+            pdist.reset_calls()
+        _, _, _, params, run = dist_run(torch, mods, cfg, mode, None,
+                                        CollectiveStats(), batches[:n], hyper,
+                                        adaptive)
+        launches = read_all_launches(kernel_mods) if mode == "dist" else None
+        calls = dict(pdist.CALLS) if mode == "dist" else None
+        runs[mode] = (run["steps"], [x.cpu() for x in tree.leaves(params)],
+                      [x.cpu() for x in tree.leaves(run["ef"].comp) if x is not None],
+                      run["history"], launches, calls)
+        del params, run
+        torch.cuda.empty_cache()
+    (r_sim, p_sim, q_sim, h_sim, _, _), (r_dist, p_dist, q_dist, h_dist, launches,
+                                         calls) = runs["sim"], runs["dist"]
+    max_diff = max((a - b).abs().max().item() for a, b in zip(p_sim, p_dist))
+    bit_equal = (all(torch.equal(a, b) for a, b in zip(p_sim + q_sim, p_dist + q_dist))
+                 and [(r["lm_loss"], r["residual_ratio"]) for r in r_sim]
+                 == [(r["lm_loss"], r["residual_ratio"]) for r in r_dist])
+    print(json.dumps({"check": "adaptive dist", "card": smi,
+                      "schedule": DIST_ADAPTIVE_SCHEDULE, "history_dist": h_dist,
+                      "history_sim": h_sim, "steps_dist": r_dist, "steps_sim": r_sim,
+                      "bit_equal": bit_equal, "max_abs_param_diff": max_diff,
+                      "dist_calls": calls, "launches": launches}), flush=True)
+    problems = []
+    if not bit_equal or h_sim != h_dist or h_dist != [(0, 2), (1, 4), (3, 1)]:
+        problems.append(f"not bit-equal to SimMesh(1) (params {max_diff:.2e}) or "
+                        f"histories {h_dist} / {h_sim}")
+    if [r["records"] for r in r_dist] != [r["records"] for r in r_sim]:
+        problems.append("records differ from the simulated step's")
+    if [r["records"][0] for r in r_dist] != [["reduce", "reduce"]] * n:
+        problems.append(f"records {[r['records'] for r in r_dist]}")
+    sizes = [r["records"][1] for r in r_dist]
+    if [s[1] * 2 // r["rank"] for s, r in zip(sizes, r_dist)] != [sizes[0][1]] * n:
+        problems.append(f"Q reduce sizes {sizes} do not follow the ranks")
+    if calls != {"all_reduce": 4 * n, "all_gather": 0}:
+        problems.append(f"torch.distributed calls {calls}")
+    want = {name: 0 for name in launches}
+    want.update(lowrank_project=n * n_buckets, lowrank_backproject=n * n_buckets)
+    if launches != want:
+        problems.append(f"launches {launches}, want {want}")
+    if problems:
+        raise AssertionError(f"adaptive dist: {problems}")
     return launches
 
 
@@ -2243,6 +2349,239 @@ def warmup_llama_phase(torch, mods, kernel_mods, cfg, compressors,
     return launches
 
 
+# Adaptive rank (phase 13): ``TrainHyper(rank_schedule=..., track_residual=
+# True)`` with a ``RankController`` in the loop, ``replace_comp`` on each
+# switch.  (a) Phase 6's full width over ADAPTIVE_STEPS steps of
+# ADAPTIVE_SCHEDULE (ranks 2, 2, 4, 4, 1, 1: fresh columns, then a cut):
+# per step rank, ms, residual ratio, bits, records, launches and peak; the
+# retained factor columns bit for bit across each switch, error buffers and
+# momentum untouched by it; the residual pass timed alone at the six bucket
+# slabs.  (b) Phase 3's reduced Llama-3-8B card against CPU, the staircase
+# and ADAPTIVE_RESIDUAL: equal rank histories, residual ratios within
+# ADAPTIVE_RESIDUAL_RTOL, each decision's margin to its thresholds.  (c)
+# runs inside phase 5's group (``dist_adaptive``).
+
+ADAPTIVE_SCHEDULE = "2@0,4@2,1@4"
+ADAPTIVE_STEPS = 6
+ADAPTIVE_RESIDUAL = "residual:min=1,max=4,init=2,every=2,ema=0"
+ADAPTIVE_RESIDUAL_RTOL = 1e-4
+DIST_ADAPTIVE_SCHEDULE, DIST_ADAPTIVE_STEPS = "2@0,4@1,1@3", 4
+
+
+def record_sizes(buckets, unc_floats, rank):
+    """The two fused reduces of a bucketed PowerSGD step at ``rank``: P (with
+    the uncompressed leaves) and Q, in floats."""
+    return [sum(b.count * b.n * rank for b in buckets) + unc_floats,
+            sum(b.count * b.m * rank for b in buckets)]
+
+
+def controlled_switch(torch, tree, error_feedback, ctl, ef, step, residual):
+    """``ctl.update`` and ``replace_comp`` for step ``step``: on a switch,
+    hold the retained columns of every factor bit for bit and the error
+    buffers and momentum untouched (the same tensors, the same float64
+    sums).  Returns the new state, whether it switched, and the host ms of
+    ``ctl.update`` with the device synchronized after it (the checks'
+    own time left out)."""
+    sums = lambda t: [float(x.sum(dtype=torch.float64)) for x in tree.leaves(t)
+                      if x is not None]
+    before = (sums(ef.error), sums(ef.momentum))
+    old = ef.comp
+    t0 = time.perf_counter()
+    new_comp, changed = ctl.update(old, step, residual)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    update_ms = (time.perf_counter() - t0) * 1e3
+    if not changed:
+        return ef, False, update_ms
+    new = error_feedback.replace_comp(ef, new_comp)
+    for (path, a), b in zip(tree.items(old), tree.leaves(new_comp)):
+        if a is None:
+            continue
+        keep = min(a.shape[-1], b.shape[-1])
+        if b.shape[-1] != ctl.rank or not torch.equal(a[..., :keep], b[..., :keep]):
+            raise AssertionError(f"adaptive: step {step}: factor {path} lost its "
+                                 f"retained columns in the switch to {ctl.rank}")
+    if (new.error is not ef.error or new.momentum is not ef.momentum
+            or (sums(new.error), sums(new.momentum)) != before):
+        raise AssertionError(f"adaptive: step {step}: the switch moved the error "
+                             f"buffers or momentum")
+    return new, True, update_ms
+
+
+def residual_pass_ms(torch, powersgd, slabs, workers):
+    """Device ms of the residual pass (``powersgd._sq_norms``) at each bucket
+    slab ``(count, n, m)`` with ``workers`` workers, by CUDA events, and the
+    bytes the function must move: each worker's M read once and the
+    aggregate once.  (The code moves about five slabs a worker: M twice,
+    the aggregate once, the difference written and read once.)"""
+    out, total_bytes = [], 0
+    for count, n, m in slabs:
+        mat = torch.randn((workers, count, n, m), device="cuda")
+        agg = torch.randn((count, n, m), device="cuda")
+        out.append(time_ms(torch, lambda: powersgd._sq_norms(mat, agg, 1), 5))
+        total_bytes += 4 * (workers + 1) * count * n * m
+        del mat, agg
+        torch.cuda.empty_cache()
+    return out, total_bytes
+
+
+def adaptive_llama_phase(torch, mods, kernel_mods, cfg, pm, powersgd,
+                         CollectiveStats, buckets, psgd_run, smi, peaks):
+    """(a): phase 6's full width under ADAPTIVE_SCHEDULE, each step's
+    launches, records and peak read after it and set to 0 before it.
+    ``psgd_run`` holds phase 6's median step ms and peak GiB.  Returns the
+    run's launches."""
+    train, tree, SimMesh, MarkovLM = mods
+    sim = SimMesh(WORKERS)
+    data = MarkovLM(vocab=cfg.vocab_size, seed=0)
+    batches = []
+    for i in range(ADAPTIVE_STEPS):
+        toks = torch.tensor(data.sample(WORKERS, SEQ, step=i), device="cuda")
+        batches.append(sim.shard({"tokens": toks[:, :-1], "labels": toks[:, 1:]}))
+    stats = CollectiveStats()
+    hyper = train.TrainHyper(rank_schedule=ADAPTIVE_SCHEDULE, track_residual=True)
+    step, init = train.make_sim_train_step(cfg, sim, hyper, stats=stats)
+    params, ef = init(torch.Generator("cuda").manual_seed(0))
+    specs = pm.model.mspecs(cfg)
+    unc = pm.bench.payload_floats(params, specs, ef.comp)[1]
+    ctl = powersgd.RankController(hyper.rank_schedule)
+    torch.cuda.synchronize()
+    rows, residual, problems = [], None, []
+    for i, batch in enumerate(batches):
+        ef, changed, update_ms = controlled_switch(torch, tree, pm.error_feedback,
+                                                   ctl, ef, i, residual)
+        stats.reset()
+        reset_all_launches(kernel_mods)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, ef, metrics = step(params, ef, batch)
+        loss = metrics["lm_loss"].item()
+        residual = metrics["residual_ratio"].item()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        comp_floats = pm.bench.payload_floats(params, specs, ef.comp)[0]
+        rows.append({"step": i, "rank": ctl.rank, "switched": changed,
+                     "update_ms": update_ms, "lm_loss": loss, "step_ms": ms,
+                     "residual_ratio": residual,
+                     "bits_per_worker": metrics["bits_per_worker"],
+                     "bits_want": 32 * (comp_floats + unc),
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "launches": read_all_launches(kernel_mods),
+                     "records": collective_records(stats)[:2],
+                     "records_want": (["reduce", "reduce"],
+                                      record_sizes(buckets, unc, ctl.rank))})
+        print(f"adaptive step {i} rank {ctl.rank} lm_loss={loss:.6f} "
+              f"residual_ratio={residual:.6f} step_ms={ms:.1f}", flush=True)
+    for r in rows:
+        want = {name: 0 for name in r["launches"]}
+        want.update(lowrank_project=len(buckets), lowrank_backproject=len(buckets))
+        if r["launches"] != want:
+            problems.append(f"step {r['step']}: launches {r['launches']}, want {want}")
+        if not (math.isfinite(r["residual_ratio"]) and r["residual_ratio"] > 0):
+            problems.append(f"step {r['step']}: residual_ratio {r['residual_ratio']}")
+        if r["bits_per_worker"] != r["bits_want"]:
+            problems.append(f"step {r['step']}: bits {r['bits_per_worker']}, want "
+                            f"{r['bits_want']}")
+        if tuple(r["records"]) != r["records_want"]:
+            problems.append(f"step {r['step']}: records {r['records']}, want "
+                            f"{r['records_want']}")
+    ranks = [r["rank"] for r in rows]
+    if ranks != [2, 2, 4, 4, 1, 1] or ctl.history != [(0, 2), (2, 4), (4, 1)]:
+        problems.append(f"ranks {ranks}, history {ctl.history}")
+    if not (math.isfinite(sum(r["lm_loss"] for r in rows))
+            and all_finite(torch, tree, params, ef.error, ef.momentum, ef.comp)):
+        problems.append("non-finite state or losses")
+    del step, init, params, ef, batches
+    torch.cuda.empty_cache()
+    # the residual pass alone at the six bucket slabs, 2 workers
+    res_ms, res_bytes = residual_pass_ms(
+        torch, powersgd, [(b.count, b.n, b.m) for b in buckets], WORKERS)
+    by_rank = {r: statistics.median(x["step_ms"] for x in rows if x["rank"] == r)
+               for r in sorted(set(ranks))}
+    summary = {
+        "check": "adaptive llama", "card": smi, "workers": WORKERS,
+        "schedule": ADAPTIVE_SCHEDULE, "history": ctl.history, "steps": rows,
+        "median_step_ms_by_rank": by_rank,
+        "phase6_median_step_ms": psgd_run["median_step_ms"],
+        "peak_gib": max(r["peak_gib"] for r in rows),
+        "phase6_peak_gib": psgd_run["peak_gib"],
+        "residual_pass_ms_by_slab": res_ms, "residual_pass_ms": sum(res_ms),
+        "residual_pass_bound_ms": res_bytes / peaks[1] * 1e3,
+        "launches": {name: sum(r["launches"][name] for r in rows)
+                     for name in rows[0]["launches"]}}
+    print(json.dumps(summary), flush=True)
+    if problems:
+        raise AssertionError(f"adaptive llama: {problems}")
+    return summary["launches"]
+
+
+def adaptive_small_phase(torch, pmods, pm, powersgd, kernel_mods, n_buckets):
+    """(b): reduced Llama-3-8B at W = 2 under each schedule, card against
+    CPU from identical state (phase 3's PowerSGD rule on losses and
+    parameters), equal rank histories, residual ratios within
+    ADAPTIVE_RESIDUAL_RTOL, and each residual decision's margin to its
+    thresholds printed.  Returns {schedule: launches on the card}."""
+    train, llama3_8b, SimMesh, MarkovLM, tree = pmods
+    cfg = llama3_8b.reduced_config()
+    sim = SimMesh(WORKERS)
+    out = {}
+    for name, spec in (("staircase", ADAPTIVE_SCHEDULE),
+                       ("residual", ADAPTIVE_RESIDUAL)):
+        hyper = train.TrainHyper(q_chunk=64, warmup_steps=2, rank_schedule=spec,
+                                 track_residual=True)
+        _, init = train.make_sim_train_step(cfg, sim, hyper, device="cpu")
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            step, _ = train.make_sim_train_step(cfg, sim, hyper, device=dev)
+            params, ef = init(torch.Generator().manual_seed(0))
+            params, ef = tree.map(lambda x: x.to(dev), params), ef.to(dev)
+            data = MarkovLM(vocab=cfg.vocab_size, seed=0, order=1)
+            ctl = powersgd.RankController(spec)
+            losses, residuals, emas, residual = [], [], [], None
+            reset_all_launches(kernel_mods)
+            for i in range(ADAPTIVE_STEPS):
+                ef, _, _ = controlled_switch(torch, tree, pm.error_feedback, ctl,
+                                             ef, i, residual)
+                emas.append(ctl.observe(None))   # what step i's decision read
+                toks = torch.tensor(data.sample(2 * WORKERS, 128, step=i), device=dev)
+                batch = sim.shard({"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+                params, ef, metrics = step(params, ef, batch)
+                losses.append(metrics["lm_loss"].item())
+                residual = metrics["residual_ratio"].item()
+                residuals.append(residual)
+            runs[dev] = (losses, tree.map(lambda x: x.cpu(), params), residuals,
+                         list(ctl.history), emas, read_all_launches(kernel_mods))
+        (l_cpu, p_cpu, r_cpu, h_cpu, e_cpu, _), (l_gpu, p_gpu, r_gpu, h_gpu, e_gpu,
+                                                 launches) = runs["cpu"], runs["cuda"]
+        check_powersgd_parity(f"adaptive {name}", l_cpu, l_gpu, tree.leaves(p_cpu),
+                              tree.leaves(p_gpu))
+        sched = powersgd.parse_schedule(spec)
+        margins = []
+        if sched.needs_residual:
+            for i, (a, b) in enumerate(zip(e_cpu, e_gpu)):
+                if i and not i % sched.every and a is not None:
+                    margins.append({"step": i, "ema_cpu": a, "ema_card": b,
+                                    "grow_margin": b - sched.grow_above,
+                                    "shrink_margin": b - sched.shrink_below})
+        rel = max(abs(a - b) / abs(a) for a, b in zip(r_cpu, r_gpu))
+        print(json.dumps({"check": "adaptive reduced", "schedule": spec,
+                          "history_cpu": h_cpu, "history_card": h_gpu,
+                          "residual_cpu": r_cpu, "residual_card": r_gpu,
+                          "max_rel_residual_diff": rel, "decision_margins": margins,
+                          "launches": launches}), flush=True)
+        if h_cpu != h_gpu or len(h_gpu) < 2:
+            raise AssertionError(f"adaptive {name}: histories {h_cpu} / {h_gpu}")
+        if not rel <= ADAPTIVE_RESIDUAL_RTOL:
+            raise AssertionError(f"adaptive {name}: residual ratios {rel:.2e} apart")
+        want = {k: 0 for k in launches}
+        want.update(lowrank_project=ADAPTIVE_STEPS * n_buckets,
+                    lowrank_backproject=ADAPTIVE_STEPS * n_buckets)
+        if launches != want:
+            raise AssertionError(f"adaptive {name}: launches {launches}, want {want}")
+        out[f"reduced {name}"] = launches
+    return out
+
+
 def int4_chunk(torch, cfg, model, matrixize, tree, workers, scheme="top_k"):
     """(chunk, parts, (workers, codes)): the int4 chunk ``scheme``'s gather
     packs each step on ``cfg``, the payload parts it plans from (meta
@@ -2308,7 +2647,7 @@ def main() -> None:
     from repro_torch.bench import tables
     from repro_torch.configs.base import get_config
     from repro_torch.configs import llama3_8b
-    from repro_torch.core import compressors, matrixize
+    from repro_torch.core import compressors, matrixize, powersgd
     from repro_torch.core import dist as pdist
     from repro_torch.core.dist import CollectiveStats
     from repro_torch.core.simmesh import SimMesh
@@ -2372,6 +2711,10 @@ def main() -> None:
     held = [("held slab", s, RANK) for s in param_slabs + leaves + lm_leaves]
     held += [("lm slab, table rank", s, r) for r in TABLE_RANKS for s in lm_slabs]
     totals = kernel_phase(torch, lowrank, ref, slabs, peaks, held=held)
+    # phase 13's schedule runs B1b/B2b at ranks 1 and 4 on the same slabs
+    for r in (1, 4):
+        slab_set_phase(torch, lowrank, ref, f"llama slabs rank {r}", slabs, peaks,
+                       seed=6 + r, rank=r)
     slab_set_phase(torch, lowrank, ref, "lm slabs", lm_slabs, peaks, seed=4)
     # the paper's models (phase 10) give B1b/B2b their bucket slabs with
     # PAPER_WORKERS workers folded into B; the LSTM's rows (650 floats) and
@@ -2379,7 +2722,7 @@ def main() -> None:
     pm = types.SimpleNamespace(
         resnet=resnet, lstm=lstm, SimMesh=SimMesh, GaussianClusters=GaussianClusters,
         MarkovLM=MarkovLM, compressors=compressors, error_feedback=error_feedback,
-        schedules=schedules, train=train, tree=tree, bench=bench)
+        schedules=schedules, train=train, tree=tree, bench=bench, model=model)
     for path, mod, params in (
             ("resnet18", resnet, resnet.init(resnet.paper_resnet18(), None,
                                              device="meta")[0]),
@@ -2449,7 +2792,8 @@ def main() -> None:
     tmods = (train, tree, SimMesh, MarkovLM)
     t_dist = time.perf_counter()
     dist_launches = dist_phase(torch, tmods, kernel_mods, cfg, compressors,
-                               CollectiveStats, pdist, len(buckets), smi)
+                               CollectiveStats, pdist, len(buckets), smi,
+                               (powersgd, error_feedback))
     print(f"dist: launches on the distributed path {dist_launches}; "
           f"{time.perf_counter() - t_dist:.1f} s")
     # the first profiler of the run: after the host-bound LM phase and the
@@ -2544,6 +2888,16 @@ def main() -> None:
         len(buckets), psgd_run, smi)
     print(f"warmup: {time.perf_counter() - t_warmup:.1f} s (and (c) in phase 5)")
 
+    # -- 13. adaptive rank ----------------------------------------------------
+    t_adaptive = time.perf_counter()
+    adaptive_launches = adaptive_small_phase(
+        torch, pmods, pm, powersgd, kernel_mods,
+        len(bench.model_buckets(llama3_8b.reduced_config())))
+    adaptive_launches["llama powersgd"] = adaptive_llama_phase(
+        torch, tmods, kernel_mods, cfg, pm, powersgd, CollectiveStats, buckets,
+        psgd_run, smi, peaks)
+    print(f"adaptive: {time.perf_counter() - t_adaptive:.1f} s (and (c) in phase 5)")
+
     # launches of each kernel on every path this run drove
     paths = {"llama powersgd": psgd, "llama top_k_int4": topk,
              **{f"dist {k}": v for k, v in dist_launches.items()},
@@ -2553,7 +2907,8 @@ def main() -> None:
              **{f"tables {k}": v for k, v in table_launches.items()},
              **paper_launches,
              **{f"weighted {k}": v for k, v in weighted_launches.items()},
-             **{f"warmup {k}": v for k, v in warmup_launches.items()}}
+             **{f"warmup {k}": v for k, v in warmup_launches.items()},
+             **{f"adaptive {k}": v for k, v in adaptive_launches.items()}}
     by_path = lambda kernel: {p: v[kernel] for p, v in paths.items() if v[kernel]}
 
     summary = []

@@ -17,9 +17,10 @@ JAX package's ``fold_in(key(123), step)``).
     from repro_torch.core.compressors import make_compressor
     train_lm(make_compressor("powersgd", rank=2), LMSpec(), device="cpu")
 
-It runs on the CUDA card unless ``device`` says otherwise.  Not ported yet:
-adaptive-rank controllers (ROADMAP queue A, item 8) and
-``init_comp_transform`` (the autotuner's plans, item 9).
+It runs on the CUDA card unless ``device`` says otherwise.  A
+:class:`~repro_torch.core.powersgd.RankController` moves the rank between
+steps.  Not ported yet: ``init_comp_transform`` (the autotuner's plans,
+ROADMAP queue A, item 9).
 
 The α-β constants (:data:`BW`, :data:`LATENCY`) model the paper's cluster
 (Appendix B: 10 Gbit/s Ethernet, NCCL-like and GLOO-like backends); they
@@ -171,11 +172,14 @@ def train_lm(compressor: Compressor, spec: LMSpec = LMSpec(),
     ``stats`` (a :class:`~repro_torch.core.dist.CollectiveStats`) records
     every training step's collectives.  ``return_params=True`` returns
     ``(result, params)``, the trained parameters on ``device``.
+
+    ``controller`` (a :class:`~repro_torch.core.powersgd.RankController`)
+    is asked before each step, with the previous step's residual ratio
+    averaged over the workers (0 where the compressor reports none, None
+    before the first step); on a switch the state's factors are replaced
+    and the payload recounted.  The result then also holds
+    ``rank_history`` and ``final_rank``.
     """
-    if controller is not None:
-        raise NotImplementedError(
-            "adaptive-rank controllers are not ported yet (ROADMAP queue A, "
-            "item 8)")
     if init_comp_transform is not None:
         raise NotImplementedError(
             "init_comp_transform (autotuner plans) is not ported yet (ROADMAP "
@@ -209,18 +213,27 @@ def train_lm(compressor: Compressor, spec: LMSpec = LMSpec(),
     step_floats = payload_floats(params, specs, state.comp) if stateful else (0, 0)
     floats_sent = 0
     step_ms = []
-    for _ in range(spec.steps):
+    residual = None
+    for i in range(spec.steps):
+        if controller is not None:
+            new_comp, changed = controller.update(state.comp, i, residual)
+            if changed:   # factor shapes moved: recount the payload
+                state = error_feedback.replace_comp(state, new_comp)
+                step_floats = payload_floats(params, specs, state.comp)
         floats_sent += step_floats[0]
         batch = sim.shard({k: torch.tensor(v, device=dev)
                            for k, v in next(it).items()})
         ts = time.perf_counter()
         grads, _ = worker_grads(cfg, params, batch, spec.workers,
                                 q_chunk=Q_CHUNK, device=dev)
-        params, state, _ = error_feedback.apply_updates(
+        params, state, aux = error_feedback.apply_updates(
             compressor, params, grads, state, specs, lr=spec.lr,
             momentum=spec.momentum, ctx=ctx, seed=RUN_SEED)
         sync(dev)
         step_ms.append((time.perf_counter() - ts) * 1e3)
+        if controller is not None:
+            res = aux.get("residual_ratio")
+            residual = 0.0 if res is None else float(res.mean())
         if bits is None:
             bits = probe_bits(compressor, params, specs, spec.seed)
     train_time = time.time() - t0
@@ -241,6 +254,9 @@ def train_lm(compressor: Compressor, spec: LMSpec = LMSpec(),
                                     else int(bits) // 32 * spec.steps),
         "step_ms": step_ms,
     }
+    if controller is not None:
+        result["rank_history"] = list(controller.history)
+        result["final_rank"] = controller.rank
     return (result, params) if return_params else result
 
 

@@ -31,8 +31,10 @@ same values on any device; a caller may override it to feed in other
 draws.  torch cannot reproduce the JAX package's key draws, so the two
 packages agree only when fed the same draws.
 
-Not ported yet: rank schedules and residual tracking (ROADMAP queue A,
-item 8).
+PowerSGD takes a rank schedule (``rank_schedule=``, see
+:func:`repro_torch.core.powersgd.parse_schedule`), driven from the training
+loop by :meth:`PowerSGDCompressor.controller`, and reports its residual
+ratios under ``track_residual=True``.
 """
 
 from __future__ import annotations
@@ -190,23 +192,33 @@ class PowerSGDCompressor(Compressor):
     both paths).
 
     bits_per_worker: ``32 · r · (n + m)`` per weight matrix (the P and Q
-    factors) plus ``32 · numel`` per uncompressed leaf; bucket padding is
-    not payload."""
+    factors) plus ``32 · numel`` per uncompressed leaf, at each factor's
+    rank; bucket padding is not payload.
+
+    ``rank_schedule`` (any form :func:`powersgd.parse_schedule` takes) sets
+    the initial rank to the schedule's, and a residual schedule turns
+    ``track_residual`` on; :meth:`controller` drives it between steps."""
 
     name = "powersgd"
 
     def __init__(self, rank=2, orthogonalizer="gram_schmidt", warm_start=True,
                  num_iters=1, error_mode="global", bucketing="auto",
                  bucket_pad_tolerance=0.25, wire_dtype="auto",
-                 max_chunk_bytes=None):
+                 max_chunk_bytes=None, rank_schedule=None,
+                 track_residual=False):
         super().__init__(
             transport="per_leaf" if bucketing == "off" else "fused",
             wire_dtype=wire_dtype, max_chunk_bytes=max_chunk_bytes)
+        self.rank_schedule = (None if rank_schedule is None
+                              else powersgd.parse_schedule(rank_schedule))
+        if self.rank_schedule is not None:
+            rank = self.rank_schedule.initial_rank()
+            track_residual = track_residual or self.rank_schedule.needs_residual
         self.cfg = powersgd.PowerSGDConfig(
             rank=rank, orthogonalizer=orthogonalizer, warm_start=warm_start,
             num_iters=num_iters, error_mode=error_mode, bucketing=bucketing,
             bucket_pad_tolerance=bucket_pad_tolerance, wire_dtype=wire_dtype,
-            max_chunk_bytes=max_chunk_bytes)
+            max_chunk_bytes=max_chunk_bytes, track_residual=track_residual)
         if num_iters > 1:
             self.name = f"powersgd_best_approx_{num_iters}it"
         elif not warm_start:
@@ -215,6 +227,12 @@ class PowerSGDCompressor(Compressor):
     def declared_budget(self) -> tuple:
         n = 2 * self.cfg.num_iters
         return (n, n, 0)
+
+    def controller(self, seed=None) -> "powersgd.RankController":
+        """A fresh host-side controller of this compressor's rank schedule
+        (:class:`FixedRank` at ``cfg.rank`` without one)."""
+        schedule = self.rank_schedule or powersgd.FixedRank(self.cfg.rank)
+        return powersgd.RankController(schedule, seed)
 
     def init(self, params, specs, generator=None):
         device = next((p.device for p in tree.leaves(params)), None)

@@ -82,6 +82,8 @@ class CompressOut:
     recon: Any            # tree: reconstruction used for the error update
     state: Any            # tree: new compressor state (warm-start Q)
     bits_per_worker: int  # payload bits sent per step per worker
+    metrics: Any = None   # optional dict of observability tensors (PowerSGD's
+    #                       residual ratios under track_residual)
 
 
 @dataclasses.dataclass(frozen=True)

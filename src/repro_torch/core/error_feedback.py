@@ -167,7 +167,9 @@ def apply_updates(compressor: Compressor, params, grads, state: EFState,
 
     ``grads`` are the per-worker gradients (``ctx.lead`` worker dims); they
     are consumed: their storage becomes ``new_state.error``.  ``params`` and
-    ``state.momentum`` are updated in place and returned.
+    ``state.momentum`` are updated in place and returned.  ``aux`` holds
+    ``bits_per_worker`` and the compressor's metrics (with ``ctx.lead``
+    worker dims), the latter only where ``start_compress_step`` is 0.
     """
     if staleness != "none":
         raise NotImplementedError(
@@ -194,7 +196,13 @@ def apply_updates(compressor: Compressor, params, grads, state: EFState,
         new_error = tree.map(lambda d, rc: d.sub_(rc), deltas, out.recon)
     new_state = EFState(error=new_error, momentum=new_momentum,
                         comp=out.state, step=state.step + 1)
-    return params, new_state, {"bits_per_worker": out.bits_per_worker}
+    aux = {"bits_per_worker": out.bits_per_worker}
+    # the compressor's observability (PowerSGD's residual ratios under
+    # track_residual).  As in the JAX package, a run with a dense warm-up
+    # reports none on any step: its switch returns the step without them.
+    if out.metrics and not start_compress_step:
+        aux.update(out.metrics)
+    return params, new_state, aux
 
 
 def _dense_step(compressor: Compressor, deltas, comp_state,

@@ -20,14 +20,35 @@ collective per vector leaf.  The products go through
 :mod:`repro_torch.kernels.ops`: the CUDA kernels for CUDA tensors, the plain
 version for CPU tensors.
 
-Not ported yet: rank schedules and residual tracking (ROADMAP queue A,
-item 8).
+Adaptive rank.  A leaf's rank is its factor's last dim, read off the state
+each step, so a rank switch is a change of the state between steps, made
+on the host:
+
+* :class:`RankSchedule` is the policy: :class:`FixedRank`,
+  :class:`StaircaseRank` (a rank per step milestone) and
+  :class:`ResidualEnergyRank` (driven by the measured residual
+  ‖M − P̂Qᵀ‖_F / ‖M‖_F, tracked under ``cfg.track_residual``);
+  :func:`parse_schedule` takes the spec strings of ``TrainHyper``.
+* :func:`transition_factor` / :func:`transition_state` keep the warm start:
+  a decrease keeps the leading columns bit for bit, an increase keeps every
+  column and appends fresh standard-normal columns.  Error buffers and
+  momentum are full-shape trees that a switch does not touch.
+* :class:`RankController` drives a schedule from the training loop.  It
+  draws the fresh columns of each switch from its base seed, on the CPU,
+  per leaf path (the shared-seed manner of
+  :func:`repro_torch.core.engine.leaf_generator`), so every worker and
+  every device draws the same columns.  torch cannot make the JAX
+  package's key draws: the two packages' growths agree only when fed the
+  same columns (:meth:`RankController.draw`).
+
+Residual tracking is per worker: each worker's ratio comes from its own M,
+as under the reference's ``vmap``, formed one worker's slab at a time.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -50,20 +71,278 @@ class PowerSGDConfig:
     bucket_pad_tolerance: float = 0.25     # max relative padding waste per bucket
     wire_dtype: str = "auto"               # fused-collective wire policy
     max_chunk_bytes: Optional[int] = None  # cap per fused wire buffer
-    track_residual: bool = False
+    track_residual: bool = False           # CompressOut.metrics: ‖M − P̂Qᵀ‖/‖M‖
 
     def __post_init__(self):
         if self.bucketing not in ("auto", "on", "off"):
             raise ValueError(f"unknown bucketing mode {self.bucketing!r}")
-        if self.track_residual:
-            raise NotImplementedError(
-                "track_residual is not ported yet (ROADMAP queue A, item 8)")
         if self.error_mode not in ("global", "local"):
             raise ValueError(f"unknown error_mode {self.error_mode!r}")
         if self.num_iters < 1:
             raise ValueError(f"num_iters must be ≥ 1, got {self.num_iters}")
         matrixize.check_wire_dtype(self.wire_dtype)
         get_orthogonalizer(self.orthogonalizer)
+
+
+# ---------------------------------------------------------------------------
+# Rank schedules: fixed / staircase / residual-energy-driven
+# ---------------------------------------------------------------------------
+
+
+class RankSchedule:
+    """Policy deciding the active rank over training, asked by the host
+    before each step.  ``next_rank`` is deterministic in its arguments, so
+    every worker (and a resumed run) takes the same switch at the same
+    step."""
+
+    def initial_rank(self) -> int:
+        raise NotImplementedError
+
+    def next_rank(self, step: int, current: int,
+                  residual: Optional[float] = None) -> int:
+        """Active rank for step ``step``; ``residual`` is the controller's
+        smoothed residual ratio (None when none was measured)."""
+        raise NotImplementedError
+
+    @property
+    def needs_residual(self) -> bool:
+        return False
+
+
+@dataclasses.dataclass(frozen=True)
+class FixedRank(RankSchedule):
+    """The paper's setting: one rank for the whole run."""
+
+    rank: int = 2
+
+    def initial_rank(self) -> int:
+        return self.rank
+
+    def next_rank(self, step, current, residual=None) -> int:
+        return self.rank
+
+
+@dataclasses.dataclass(frozen=True)
+class StaircaseRank(RankSchedule):
+    """``milestones``: sorted ``(step, rank)`` pairs; step t runs at the rank
+    of the last milestone with ``step <= t`` (e.g. ``"1@0,2@50,4@100"``)."""
+
+    milestones: Tuple[Tuple[int, int], ...] = ((0, 2),)
+
+    def __post_init__(self):
+        assert self.milestones and self.milestones[0][0] == 0, (
+            "first milestone must cover step 0", self.milestones)
+        steps = [s for s, _ in self.milestones]
+        assert steps == sorted(steps), ("milestones must be sorted",
+                                        self.milestones)
+        assert all(r >= 1 for _, r in self.milestones), self.milestones
+
+    def initial_rank(self) -> int:
+        return self.milestones[0][1]
+
+    def next_rank(self, step, current, residual=None) -> int:
+        rank = self.milestones[0][1]
+        for s, r in self.milestones:
+            if step >= s:
+                rank = r
+        return rank
+
+
+@dataclasses.dataclass(frozen=True)
+class ResidualEnergyRank(RankSchedule):
+    """Rank driven by the residual ratio ρ = ‖M − P̂Qᵀ‖_F / ‖M‖_F.  Every
+    ``every`` steps the smoothed ρ̄ (an EMA with weight ``ema`` on the past,
+    kept by :class:`RankController`) is held against a hysteresis band:
+    ρ̄ > ``grow_above`` doubles the rank toward ``max_rank``, ρ̄ <
+    ``shrink_below`` halves it toward ``min_rank``."""
+
+    min_rank: int = 1
+    max_rank: int = 8
+    init_rank: int = 4
+    shrink_below: float = 0.35
+    grow_above: float = 0.7
+    every: int = 10
+    ema: float = 0.8
+
+    def __post_init__(self):
+        assert 1 <= self.min_rank <= self.init_rank <= self.max_rank
+        assert 0.0 <= self.shrink_below < self.grow_above
+
+    def initial_rank(self) -> int:
+        return self.init_rank
+
+    @property
+    def needs_residual(self) -> bool:
+        return True
+
+    def next_rank(self, step, current, residual=None) -> int:
+        if residual is None or step == 0 or step % self.every:
+            return current
+        if residual > self.grow_above:
+            return min(current * 2, self.max_rank)
+        if residual < self.shrink_below:
+            return max(current // 2, self.min_rank)
+        return current
+
+
+_RESIDUAL_KEYS = {"min": "min_rank", "max": "max_rank", "init": "init_rank",
+                  "shrink": "shrink_below", "grow": "grow_above",
+                  "every": "every", "ema": "ema"}
+
+
+def parse_schedule(spec) -> RankSchedule:
+    """A :class:`RankSchedule` from a ``RankSchedule`` (returned as is), an
+    int or ``"4"`` (:class:`FixedRank`), ``(step, rank)`` pairs or
+    ``"4@0,2@60,1@120"`` (``rank@step``, :class:`StaircaseRank`), or
+    ``"residual:min=1,max=8,init=4,shrink=…,grow=…,every=…,ema=…"`` (every
+    key optional, :class:`ResidualEnergyRank`).  Anything else raises
+    ``TypeError``."""
+    if isinstance(spec, RankSchedule):
+        return spec
+    if isinstance(spec, int):
+        return FixedRank(rank=spec)
+    if isinstance(spec, (tuple, list)):
+        return StaircaseRank(milestones=tuple((int(s), int(r)) for s, r in spec))
+    if not isinstance(spec, str):
+        raise TypeError(f"cannot parse rank schedule from {spec!r}")
+    s = spec.strip()
+    if s.startswith("residual"):
+        kw = {}
+        if ":" in s:
+            for item in s.split(":", 1)[1].split(","):
+                k, v = item.split("=")
+                field = _RESIDUAL_KEYS[k.strip()]
+                kw[field] = (float(v) if field in
+                             ("shrink_below", "grow_above", "ema") else int(v))
+        return ResidualEnergyRank(**kw)
+    if "@" in s:
+        pairs = []
+        for item in s.split(","):
+            r, at = item.split("@")
+            pairs.append((int(at), int(r)))
+        return StaircaseRank(milestones=tuple(sorted(pairs)))
+    return FixedRank(rank=int(s))
+
+
+# ---------------------------------------------------------------------------
+# Warm-start-preserving rank transitions
+# ---------------------------------------------------------------------------
+
+
+def transition_factor(q: torch.Tensor, new_rank: int,
+                      draw: Optional[Callable] = None,
+                      path=()) -> torch.Tensor:
+    """One warm-start factor ``(..., m, r)`` moved to ``(..., m, new_rank)``.
+
+    The retained columns are the old ones bit for bit: a decrease keeps the
+    leading ``new_rank`` columns (Gram–Schmidt takes the columns in order,
+    so these carry the dominant directions), as a new dense tensor, so the
+    kernels see a dense factor and the old storage can go; an increase
+    appends ``draw(path, (m, new_rank − r))``, fresh standard-normal
+    columns drawn once and broadcast over any batch dims.  The same rank
+    returns ``q`` itself."""
+    r = q.shape[-1]
+    if new_rank == r:
+        return q
+    if new_rank < r:
+        return q[..., :new_rank].contiguous()
+    if draw is None:
+        raise ValueError("growing a factor draws fresh columns: pass a draw")
+    m = q.shape[-2]
+    cols = draw(path, (m, new_rank - r)).to(device=q.device, dtype=q.dtype)
+    return torch.cat([q, cols.expand(tuple(q.shape[:-2]) + (m, new_rank - r))],
+                     dim=-1)
+
+
+def transition_state(state, new_rank, draw: Optional[Callable] = None):
+    """:func:`transition_factor` over a state tree (``None`` leaves pass
+    through).  ``new_rank`` is an int (a uniform switch) or a tree of
+    per-leaf ints or ``None`` aligned with ``state`` (``None`` leaves that
+    factor as it is).  ``draw(path, shape)`` gives a leaf's fresh
+    columns."""
+    items = list(tree.items(state))
+    ranks = ([new_rank] * len(items) if isinstance(new_rank, int)
+             else tree.leaves(new_rank))
+    if len(ranks) != len(items):
+        raise ValueError("the rank tree does not align with the state")
+    out = []
+    for (path, q), r in zip(items, ranks):
+        out.append(q if q is None or r is None
+                   else transition_factor(q, int(r), draw, path))
+    return tree.unflatten(state, out)
+
+
+class RankController:
+    """Runs a :class:`RankSchedule` on the host.
+
+    Call :meth:`update` once per step, before the step, with the step's
+    index (and the previous step's residual ratio for a residual
+    schedule); it returns the compressor state, transitioned when the
+    policy switches, and whether it did.  The controller keeps the one
+    piece of mutable policy state, the residual EMA.
+
+    Switch n draws its fresh columns from ``engine.step_seed(seed, n)``
+    (:meth:`draw`), where the JAX package splits a key per switch; so a
+    restored controller (:meth:`load_state_dict`) replays the rest of a
+    schedule, columns included.
+    """
+
+    def __init__(self, schedule, seed: Optional[int] = None):
+        self.schedule = parse_schedule(schedule)
+        self.seed = 17 if seed is None else int(seed)
+        self.switches = 0
+        self.rank = self.schedule.initial_rank()
+        self._ema: Optional[float] = None
+        self.history: list = [(0, self.rank)]   # (step, rank) switch log
+
+    def draw(self, switch: int, path, shape) -> torch.Tensor:
+        """The fresh columns of switch ``switch`` for the leaf at ``path``:
+        standard normal float32, on the CPU, from a generator seeded by the
+        switch's seed and the path.  A caller may override it to feed in
+        other columns."""
+        gen = engine.leaf_generator(engine.step_seed(self.seed, switch), path)
+        return torch.randn(shape, generator=gen)
+
+    def observe(self, residual: Optional[float]) -> Optional[float]:
+        if residual is None:
+            return self._ema
+        lam = getattr(self.schedule, "ema", 0.0)
+        self._ema = (float(residual) if self._ema is None
+                     else lam * self._ema + (1 - lam) * float(residual))
+        return self._ema
+
+    def update(self, comp_state, step: int, residual: Optional[float] = None):
+        """-> ``(comp_state, changed)``."""
+        ema = self.observe(residual)
+        new = int(self.schedule.next_rank(step, self.rank, ema))
+        if new == self.rank:
+            return comp_state, False
+        n = self.switches
+        comp_state = transition_state(
+            comp_state, new, lambda path, shape: self.draw(n, path, shape))
+        self.switches += 1
+        self.rank = new
+        self.history.append((step, new))
+        return comp_state, True
+
+    def state_dict(self) -> dict:
+        """A snapshot of plain Python values: ``rank``, ``ema`` and
+        ``history`` as the JAX package's, and the port's ``seed`` and
+        ``switches`` in place of its key."""
+        return {"rank": int(self.rank),
+                "ema": None if self._ema is None else float(self._ema),
+                "history": [[int(s), int(r)] for s, r in self.history],
+                "seed": int(self.seed), "switches": int(self.switches)}
+
+    def load_state_dict(self, d: dict) -> "RankController":
+        """Restore a :meth:`state_dict` snapshot (the schedule comes from
+        the constructor)."""
+        self.rank = int(d["rank"])
+        self._ema = None if d["ema"] is None else float(d["ema"])
+        self.history = [(int(s), int(r)) for s, r in d["history"]]
+        self.seed = int(d["seed"])
+        self.switches = int(d["switches"])
+        return self
 
 
 def init_state(cfg: PowerSGDConfig, shapes, specs,
@@ -133,10 +412,39 @@ def compress_aggregate(cfg: PowerSGDConfig, deltas, state, specs,
     else:
         recon_bufs, recon_lead = agg_bufs, ()
 
+    metrics = None
+    if cfg.track_residual and m_bufs:
+        # per bucket and worker; padding adds exact zeros to both norms
+        norms = [_sq_norms(mb, ab, len(ctx.lead)) for mb, ab in zip(m_bufs, agg_bufs)]
+        nums = torch.stack([n for n, _ in norms], dim=-1)   # lead + (buckets,)
+        dens = torch.stack([d for _, d in norms], dim=-1)
+        metrics = {"residual_ratio": _residual_ratio(sum(n for n, _ in norms),
+                                                     sum(d for _, d in norms)),
+                   "bucket_residual_ratio": _residual_ratio(nums, dens)}
+
     agg, recon, new_state = payloads.scatter(agg_bufs, recon_bufs, q_bufs,
                                              unc_agg, recon_lead=recon_lead)
     return engine.CompressOut(agg=agg, recon=recon, state=new_state,
-                              bits_per_worker=payloads.bits)
+                              bits_per_worker=payloads.bits, metrics=metrics)
+
+
+def _sq_norms(mat: torch.Tensor, agg: torch.Tensor, nl: int):
+    """``(Σ(M − agg)², ΣM²)`` per worker, each of shape ``mat.shape[:nl]``:
+    ``mat`` carries ``nl`` worker dims, ``agg`` none.  One worker at a time,
+    so the difference never takes more than one worker's slab."""
+    lead = tuple(mat.shape[:nl])
+    flat = mat.reshape((-1,) + tuple(mat.shape[nl:]))
+    nums, dens = [], []
+    for w in range(flat.shape[0]):
+        nums.append(torch.linalg.vector_norm(flat[w] - agg).square())
+        dens.append(torch.linalg.vector_norm(flat[w]).square())
+    return torch.stack(nums).reshape(lead), torch.stack(dens).reshape(lead)
+
+
+def _residual_ratio(num_sq, den_sq):
+    """sqrt(Σ‖M − P̂Qᵀ‖² / Σ‖M‖²), the denominator held at float32's
+    smallest normal."""
+    return torch.sqrt(num_sq / torch.clamp(den_sq, min=torch.finfo(torch.float32).tiny))
 
 
 def _compress_aggregate_per_leaf(cfg: PowerSGDConfig, deltas, state, specs,
@@ -147,7 +455,7 @@ def _compress_aggregate_per_leaf(cfg: PowerSGDConfig, deltas, state, specs,
     one ``pmean_data`` of its own."""
     orth = get_orthogonalizer(cfg.orthogonalizer)
     lead = ctx.lead
-    floats, results = 0, []
+    floats, results, norms = 0, [], []
     for path, g, q, spec in engine.collect_leaves(deltas, state, specs):
         shape = tuple(g.shape[len(lead):])
         if q is None:
@@ -171,13 +479,24 @@ def _compress_aggregate_per_leaf(cfg: PowerSGDConfig, deltas, state, specs,
         else:
             recon = agg.reshape(shape)
         floats += matrixize.compressed_floats(shape, spec, q.shape[-1])
+        if cfg.track_residual:
+            norms.append(_sq_norms(mat, agg, len(lead)))
         results.append((agg.reshape(shape).to(g.dtype), recon.to(g.dtype), q))
+    metrics = None
+    if norms:
+        metrics = {"residual_ratio": _residual_ratio(sum(n for n, _ in norms),
+                                                     sum(d for _, d in norms))}
     agg, recon, new_state = engine.scatter_tree(deltas, results)
     return engine.CompressOut(agg=agg, recon=recon, state=new_state,
-                              bits_per_worker=floats * 32)
+                              bits_per_worker=floats * 32, metrics=metrics)
 
 
-def compressed_floats_total(shapes, specs, rank: int) -> int:
-    """Analytic floats per step at a static rank (paper Tables 3/10/11)."""
-    return sum(matrixize.compressed_floats(tuple(s.shape), spec, rank)
-               for s, spec in zip(tree.leaves(shapes), tree.leaves(specs)))
+def compressed_floats_total(shapes, specs, rank) -> int:
+    """Analytic floats per step (paper Tables 3/10/11).  ``rank`` is an int
+    (a static rank) or a compressor state tree aligned with ``shapes``, whose
+    leaves are charged at their own factor's rank (``None``: uncompressed)."""
+    leaves = tree.leaves(shapes)
+    ranks = ([rank] * len(leaves) if isinstance(rank, int)
+             else [0 if q is None else q.shape[-1] for q in tree.leaves(rank)])
+    return sum(matrixize.compressed_floats(tuple(s.shape), spec, r)
+               for s, spec, r in zip(leaves, tree.leaves(specs), ranks))

@@ -15,6 +15,23 @@ steps dense (one fused all-reduce of the whole gradient, error buffers
 held at zero) before the compressor takes over, as
 :func:`repro_torch.core.error_feedback.apply_updates` describes.
 
+``rank_schedule`` and ``track_residual`` pass to the default PowerSGD
+compressor.  The schedule is driven by the caller's loop, between steps:
+
+    comp = PowerSGDCompressor(rank_schedule="2@0,4@100", track_residual=True)
+    step, init = make_sim_train_step(cfg, sim, hyper, compressor=comp)
+    ctl, residual = comp.controller(), None
+    for i, batch in enumerate(batches):
+        new_comp, changed = ctl.update(ef.comp, i, residual)
+        if changed:
+            ef = error_feedback.replace_comp(ef, new_comp)
+        params, ef, metrics = step(params, ef, batch)
+        residual = metrics["residual_ratio"].item()
+
+``metrics["residual_ratio"]`` is the workers' residual ratios averaged as
+the loss is, outside ``stats``, so every rank sees the same value and
+takes the same switch.
+
 The command-line entry point and checkpointing wait for ROADMAP queue A,
 item 10; the model axis (tensor parallelism) for ROADMAP queue A, item 14.
 """
@@ -49,6 +66,11 @@ class TrainHyper:
     bucketing: str = "auto"         # "auto"/"on" = bucketed engine, "off" = per-leaf
     wire_dtype: str = "auto"
     start_compress_step: int = 0    # dense warm-up steps before compression
+    rank_schedule: Optional[str] = None  # adaptive-rank spec ("4@0,2@60",
+    #   "residual:min=1,max=8", ...; repro_torch.core.powersgd.parse_schedule),
+    #   driven by the host loop: a RankController from the compressor
+    #   transitions ef.comp between steps
+    track_residual: bool = False    # residual_ratio in the step's metrics
 
 
 def _schedule(hyper: TrainHyper, step: int) -> float:
@@ -104,7 +126,9 @@ def _default_compressor(hyper: TrainHyper) -> Compressor:
     return PowerSGDCompressor(rank=hyper.rank,
                               orthogonalizer=hyper.orthogonalizer,
                               bucketing=hyper.bucketing,
-                              wire_dtype=hyper.wire_dtype)
+                              wire_dtype=hyper.wire_dtype,
+                              rank_schedule=hyper.rank_schedule,
+                              track_residual=hyper.track_residual)
 
 
 def _make_step(cfg: ModelConfig, hyper: TrainHyper,
@@ -129,6 +153,8 @@ def _make_step(cfg: ModelConfig, hyper: TrainHyper,
             seed=seed, start_compress_step=hyper.start_compress_step)
         metrics = {"lm_loss": loss, "lr": lr,
                    "bits_per_worker": aux["bits_per_worker"]}
+        if "residual_ratio" in aux:   # what a host-side RankController reads
+            metrics["residual_ratio"] = ctx.backend.pmean(aux["residual_ratio"])
         return params, ef_state, metrics
 
     def init_state(generator: Optional[torch.Generator] = None):

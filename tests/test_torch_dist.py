@@ -28,6 +28,13 @@ one worker each, started once for the whole file.
   exactly 0 after the dense steps, replicas bit-identical, and a dense step
   records one reduce of the whole gradient and calls ``all_reduce`` once
   for it and once for the loss.
+* (g) Adaptive rank: 4 PowerSGD steps under the staircase ``RANK_SCHEDULE``
+  (a growth, then a cut) with ``track_residual``, each rank driving its
+  own ``RankController`` from the step's ``residual_ratio``.  Every rank
+  takes the same switches and holds bit-identical factors, parameters and
+  momentum; the run matches the port's ``make_sim_train_step`` on
+  ``SimMesh(4)`` with a controller of its own (losses and residual ratios
+  rtol 1e-5, parameters atol 2e-6, momentum and factors atol 1e-5).
 * (e) Two more schemes of the zoo, 2 steps each with one base seed:
   ``random_k`` (shared-seed draws on a reduce) and ``sign_norm`` (a
   gather of int8 signs and float norms).  Every rank draws the same
@@ -58,7 +65,8 @@ import torch.multiprocessing as mp
 
 from repro_torch import bridge, tree
 from repro_torch.configs import llama3_8b
-from repro_torch.core import compressors, dist, engine, matrixize as mz
+from repro_torch.core import compressors, dist, engine, error_feedback
+from repro_torch.core import matrixize as mz
 from repro_torch.core.error_feedback import EFState
 from repro_torch.core.simmesh import SimMesh
 from repro_torch.data.synthetic import MarkovLM
@@ -81,6 +89,7 @@ W, BATCH, SEQ = 4, 8, 32
 STEPS = {"powersgd": 5, "top_k": 3}
 ZOO_STEPS = {"random_k": 2, "sign_norm": 2}
 WARMUP_STEPS, WARMUP_K = 4, 2   # (f): PowerSGD, dense through step k − 1
+RANK_SCHEDULE, RANK_STEPS = "2@0,4@1,1@3", 4   # (g): ranks 2, 4, 4, 1
 ZOO_SEED = 7          # the base seed every rank passes to the step
 WIRES = ("auto", "float32", "int8", "int4")
 RENDEZVOUS_S = 60     # init_process_group and every collective
@@ -214,6 +223,47 @@ def _rank_steps(rank, path, start, batches, start_compress_step=0):
     return out
 
 
+def _rank_comp():
+    return compressors.make_compressor("powersgd", rank_schedule=RANK_SCHEDULE,
+                                       track_residual=True)
+
+
+def _controlled_steps(step, params, ef, shards):
+    """(g): the steps under a fresh controller of ``RANK_SCHEDULE``, which
+    reads each step's ``residual_ratio``.  Per step the rank, loss,
+    residual and a digest of the factors."""
+    ctl, residual, out = _rank_comp().controller(), None, []
+    for i, shard in enumerate(shards):
+        new_comp, changed = ctl.update(ef.comp, i, residual)
+        if changed:
+            ef = error_feedback.replace_comp(ef, new_comp)
+        params, ef, m = step(params, ef, shard)
+        residual = m["residual_ratio"].item()
+        out.append((ctl.rank, m["lm_loss"].item(), residual, _digest(ef.comp)))
+    return params, ef, out, ctl.history
+
+
+def _rank_adaptive(rank, start, batches):
+    """(g): the distributed step under the staircase on this rank's
+    shards."""
+    step, _ = train.make_train_step(llama3_8b.reduced_config(), _hyper(),
+                                    _rank_comp(), device="cpu")
+    params = bridge.to_torch(start["params"])
+    ef = EFState(error=tree.map(torch.zeros_like, params),
+                 momentum=tree.map(torch.zeros_like, params),
+                 comp=bridge.to_torch(start["comp"]))
+    shards = [{k: torch.tensor(v.reshape((W, -1) + v.shape[1:])[rank])
+               for k, v in b.items()} for b in batches]
+    params, ef, steps, history = _controlled_steps(step, params, ef, shards)
+    out = {"steps": steps, "history": history,
+           "digests": {k: _digest(t) for k, t in (
+               ("params", params), ("momentum", ef.momentum), ("q", ef.comp))}}
+    if rank == 0:
+        out.update(params=bridge.to_numpy(params),
+                   momentum=bridge.to_numpy(ef.momentum), q=bridge.to_numpy(ef.comp))
+    return out
+
+
 def _draws_digest(params, steps):
     """One hash over ``random_k``'s index draws for every leaf and step."""
     comp = compressors.make_compressor("random_k")
@@ -274,6 +324,8 @@ def _rank_main(rank, rdzv, inputs, results):
         out["warmup"] = _rank_steps(rank, "powersgd", inputs["start"]["warmup"],
                                     inputs["batches"]["warmup"],
                                     start_compress_step=WARMUP_K)
+        out["adaptive"] = _rank_adaptive(rank, inputs["start"]["powersgd"],
+                                         inputs["batches"]["adaptive"])
         results.put((rank, out))
     except BaseException:
         results.put((rank, traceback.format_exc()))
@@ -334,6 +386,7 @@ def _run_ranks():
     vocab = llama3_8b.reduced_config().vocab_size
     batches = {p: _batches(vocab, n) for p, n in {**STEPS, **ZOO_STEPS}.items()}
     batches["warmup"] = _batches(vocab, WARMUP_STEPS)
+    batches["adaptive"] = _batches(vocab, RANK_STEPS)
     refs = {p: _reference(p) for p in STEPS}
     refs["warmup"] = _reference("powersgd", start_compress_step=WARMUP_K)
     starts = {p: {"params": _np_tree(r[3], 0), "comp": _np_tree(r[4].comp, 0)}
@@ -614,6 +667,50 @@ def test_warmup_collectives(run):
         assert np.diff([0] + per_step).tolist() == [2] * WARMUP_K + [3] * (
             WARMUP_STEPS - WARMUP_K)
         assert got["calls"]["all_gather"] == 0
+
+
+# ---------------------------------------------------------------------------
+# (g) adaptive rank
+# ---------------------------------------------------------------------------
+
+def test_adaptive_rank_ranks_agree_and_match_sim(run):
+    """Every rank takes the staircase's switches at the same steps with the
+    same residuals and bit-identical factors after every step; the run
+    matches ``SimMesh(4)`` driven the same way."""
+    ranks = [run["ranks"][r]["adaptive"] for r in range(W)]
+    for o in ranks[1:]:
+        assert o["history"] == ranks[0]["history"]
+        assert o["steps"] == ranks[0]["steps"]     # ranks, losses, residuals, Q
+        assert o["digests"] == ranks[0]["digests"]
+    assert ranks[0]["history"] == [(0, 2), (1, 4), (3, 1)]
+    assert [s[0] for s in ranks[0]["steps"]] == [2, 4, 4, 1]
+    step, _ = train.make_sim_train_step(llama3_8b.reduced_config(), SimMesh(W),
+                                        _hyper(), _rank_comp(), device="cpu")
+    start = run["inputs"]["start"]["powersgd"]
+    params = bridge.to_torch(start["params"])
+    ef = EFState(error=tree.map(lambda p: torch.zeros((W,) + tuple(p.shape)), params),
+                 momentum=tree.map(torch.zeros_like, params),
+                 comp=bridge.to_torch(start["comp"]))
+    shards = [SimMesh(W).shard({k: torch.tensor(v) for k, v in b.items()})
+              for b in run["inputs"]["batches"]["adaptive"]]
+    params, ef, sim_steps, history = _controlled_steps(step, params, ef, shards)
+    assert history == ranks[0]["history"]
+    got = ranks[0]["steps"]
+    np.testing.assert_allclose([s[1] for s in got], [s[1] for s in sim_steps],
+                               rtol=LOSS_RTOL)
+    np.testing.assert_allclose([s[2] for s in got], [s[2] for s in sim_steps],
+                               rtol=1e-5)
+    for name, want, atol in (("params", params, PARAM_ATOL),
+                             ("momentum", ef.momentum, STATE_ATOL),
+                             ("q", ef.comp, STATE_ATOL)):
+        for (p, g), w_ in zip(tree.items(ranks[0][name]),
+                              tree.leaves(bridge.to_numpy(want))):
+            if w_ is None:
+                assert g is None, p
+                continue
+            assert g.shape == w_.shape, (name, p)
+            np.testing.assert_allclose(g, w_, atol=atol, rtol=0,
+                                       err_msg=f"{name} {list(p)}")
 
 
 # ---------------------------------------------------------------------------

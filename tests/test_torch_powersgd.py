@@ -50,9 +50,10 @@ def _deltas(workers, seed=0):
             for k, s in SHAPES.items()}
 
 
-def _reference(jcfg, deltas, workers):
+def _reference(jcfg, deltas, workers, metrics=False):
     """Run the JAX engine; returns (agg, recon, new_q, bits, stats, q0) as
-    numpy, agg/new_q from worker 0."""
+    numpy, agg/new_q from worker 0; with ``metrics``, the compressor's
+    metrics (per worker) after them."""
     specs = _specs(jmz)
     shapes = jax.tree_util.tree_map(
         lambda x: jax.ShapeDtypeStruct(x.shape[1:] if workers else x.shape,
@@ -65,28 +66,31 @@ def _reference(jcfg, deltas, workers):
 
         def worker(d, q):
             out = jpsgd.compress_aggregate(jcfg, d, q, specs, sim.ctx(stats=stats))
-            return out.agg, out.recon, out.state, out.bits_per_worker
+            return out.agg, out.recon, out.state, out.bits_per_worker, out.metrics
 
-        agg, recon, q, bits = sim.run(worker, in_axes=(0, None))(jd, q0)
+        agg, recon, q, bits, mets = sim.run(worker, in_axes=(0, None))(jd, q0)
         agg, q, bits = (jax.tree_util.tree_map(lambda x: x[0], t)
                         for t in (agg, q, bits))
     else:
         out = jpsgd.compress_aggregate(jcfg, jd, q0, specs,
                                        jdist.MeshCtx(stats=stats))
         agg, recon, q, bits = out.agg, out.recon, out.state, out.bits_per_worker
+        mets = out.metrics
     to_np = lambda t: jax.tree_util.tree_map(
         lambda x: None if x is None else np.asarray(x), t,
         is_leaf=lambda x: x is None)
-    return to_np(agg), to_np(recon), to_np(q), int(bits), stats, to_np(q0)
+    out = (to_np(agg), to_np(recon), to_np(q), int(bits), stats, to_np(q0))
+    return out + (to_np(mets),) if metrics else out
 
 
-def _port(cfg, deltas, q0, workers):
+def _port(cfg, deltas, q0, workers, metrics=False):
     stats = dist.CollectiveStats()
     ctx = SimMesh(workers).ctx(stats=stats) if workers else dist.MeshCtx(stats=stats)
     out = powersgd.compress_aggregate(cfg, bridge.to_torch(deltas),
                                       bridge.to_torch(q0), _specs(mz), ctx)
-    return (bridge.to_numpy(out.agg), bridge.to_numpy(out.recon),
-            bridge.to_numpy(out.state), out.bits_per_worker, stats)
+    got = (bridge.to_numpy(out.agg), bridge.to_numpy(out.recon),
+           bridge.to_numpy(out.state), out.bits_per_worker, stats)
+    return got + (bridge.to_numpy(out.metrics),) if metrics else got
 
 
 def _close(got, want, held_once=False):
@@ -209,27 +213,39 @@ def test_compressed_floats_total_matches_reference():
     assert powersgd.compressed_floats_total(pshapes, _specs(mz), 3) == want
 
 
+# the id of each case names the ROADMAP queue A item the option came from
 @pytest.mark.parametrize("kw,item", [({"bucketing": "off"}, None),
-                                     ({"track_residual": True}, "item 8"),
+                                     pytest.param({"track_residual": True}, None,
+                                                  id="kw1-item 8"),
                                      ({"wire_dtype": "bfloat16"}, "item 11")])
 def test_unported_options_raise(kw, item):
     """Options still to port raise, naming their ROADMAP queue A item;
     ``bucketing="off"`` (the per-leaf path, item 4) is ported and matches
-    the reference's per-leaf path."""
+    the reference's per-leaf path, and ``track_residual=True`` (item 8) is
+    ported: it leaves the step as it was and reports each worker's
+    residual ratios within rtol 1e-5 of the reference's."""
     if item is not None:
         with pytest.raises(NotImplementedError, match=item):
             powersgd.PowerSGDConfig(**kw)
         return
     deltas = _deltas(4)
-    agg_r, recon_r, q_r, bits_r, stats_r, q0 = _reference(
-        jpsgd.PowerSGDConfig(rank=2, **kw), deltas, 4)
-    agg, recon, q, bits, stats = _port(powersgd.PowerSGDConfig(rank=2, **kw),
-                                       deltas, q0, 4)
+    agg_r, recon_r, q_r, bits_r, stats_r, q0, mets_r = _reference(
+        jpsgd.PowerSGDConfig(rank=2, **kw), deltas, 4, metrics=True)
+    agg, recon, q, bits, stats, mets = _port(
+        powersgd.PowerSGDConfig(rank=2, **kw), deltas, q0, 4, metrics=True)
     _close(agg, agg_r)
     _close(q, q_r)
     _close(recon, recon_r, held_once=True)
     assert bits == bits_r
     assert stats.sizes == stats_r.sizes and stats.kinds == stats_r.kinds
+    if mets_r is None:
+        assert mets is None
+        return
+    assert sorted(mets) == sorted(mets_r)
+    for k in mets_r:
+        assert mets[k].shape == mets_r[k].shape, k     # one per worker
+        np.testing.assert_allclose(mets[k], mets_r[k], rtol=1e-5, atol=0,
+                                   err_msg=k)
 
 
 def test_simmesh_data_movement():
