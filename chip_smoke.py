@@ -140,6 +140,21 @@ Phases, in order; any failure raises and the script exits non-zero:
               (c), inside phase 5's group, 4 steps of ``make_train_step``
               under ``DIST_ADAPTIVE_SCHEDULE`` against ``SimMesh(1)``, bit
               for bit.
+14. orthogonalizers — ``gram_schmidt``, ``cholesky_qr`` and ``gs_cholqr``:
+              (a) at the P slabs of Llama-3-8B (r = 2, W = 2), ResNet-18
+              (r = 2) and the LSTM (r = 4, W = 16), worker copies folded
+              into B, one ill-conditioned element a slab: device ms,
+              host µs, kernels a call, synchronizations, CUDA-graph
+              capture (tried last) and the bytes' bound; card against CPU,
+              worker copies bit-identical, gs_cholqr's choice as the
+              CPU's with its margin; (b) phase 6's full width, 3 steps
+              under each ``TrainHyper(orthogonalizer=…)``: step ms, peak,
+              launches, records, losses and the parameters' distance from
+              the Gram-Schmidt run; (c) reduced Llama-3-8B card against
+              CPU under the two CholeskyQR names; (d), inside phase 5's
+              group, 3 steps of ``make_train_step`` with ``cholesky_qr``
+              against ``SimMesh(1)`` (phase 3's rule, bit equality
+              printed).
 
 Each main path runs with every launch count set to 0 just before it and
 read just after; the summary line gives each kernel's launches on every
@@ -164,6 +179,7 @@ import sys
 import tempfile
 import time
 import types
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -953,6 +969,18 @@ def read_all_launches(kernel_mods) -> dict:
     return {k: v for mod in kernel_mods for k, v in mod.LAUNCHES.items()}
 
 
+def llama_batches(torch, MarkovLM, cfg, sim, steps):
+    """``steps`` batches of the full-width Llama paths on the card: WORKERS
+    ``MarkovLM`` sequences of SEQ tokens each (seed 0, one draw a step),
+    sharded over ``sim``."""
+    data = MarkovLM(vocab=cfg.vocab_size, seed=0)
+    batches = []
+    for i in range(steps):
+        toks = torch.tensor(data.sample(WORKERS, SEQ, step=i), device="cuda")
+        batches.append(sim.shard({"tokens": toks[:, :-1], "labels": toks[:, 1:]}))
+    return batches
+
+
 def train_phase(torch, mods, kernel_mods, cfg, path, compressor, stats=None,
                 per_step_check=None):
     """TRAIN_STEPS steps of the full-width model on one path, with every
@@ -969,11 +997,7 @@ def train_phase(torch, mods, kernel_mods, cfg, path, compressor, stats=None,
           f"{WORKERS} simulated workers x 1 sequence x {SEQ} tokens; params, "
           f"momentum and compressor state are worker-identical and held once, "
           f"error buffers per worker")
-    data = MarkovLM(vocab=cfg.vocab_size, seed=0)
-    batches = []
-    for i in range(TRAIN_STEPS):
-        toks = torch.tensor(data.sample(WORKERS, SEQ, step=i), device="cuda")
-        batches.append(sim.shard({"tokens": toks[:, :-1], "labels": toks[:, 1:]}))
+    batches = llama_batches(torch, MarkovLM, cfg, sim, TRAIN_STEPS)
     torch.cuda.synchronize()
     print(f"{path}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
           f"before the first step")
@@ -1279,9 +1303,10 @@ def dist_phase(torch, mods, kernel_mods, cfg, compressors, CollectiveStats,
     PowerSGD parameters within 1e-4, Top-K parameters under the flip rule)
     with the simulated step in the CPU's place.  Every launch count and the
     count of ``torch.distributed`` calls are set to 0 just before the
-    distributed run and read just after.  Then phase 12 (c) and phase 13
-    (c) in the same group (``adaptive``: the port's ``powersgd`` and
-    ``error_feedback`` modules).  Returns {path: launches}."""
+    distributed run and read just after.  Then phase 12 (c), phase 13 (c)
+    and phase 14 (d) in the same group (``adaptive``: the port's
+    ``powersgd`` and ``error_feedback`` modules).  Returns {path:
+    launches}."""
     import torch.distributed as tdist
 
     tree, MarkovLM = mods[1], mods[3]
@@ -1376,6 +1401,9 @@ def dist_phase(torch, mods, kernel_mods, cfg, compressors, CollectiveStats,
             out["adaptive"] = dist_adaptive(torch, mods, kernel_mods, cfg, adaptive,
                                             CollectiveStats, pdist, n_buckets, smi,
                                             all_batches)
+            out["orthogonalizers"] = dist_orth(torch, mods, kernel_mods, cfg,
+                                               CollectiveStats, pdist, n_buckets,
+                                               smi, batches)
         finally:
             tdist.destroy_process_group()
     return out
@@ -1525,11 +1553,7 @@ def zoo_llama_phase(torch, mods, kernel_mods, cfg, compressors, CollectiveStats,
     launches}."""
     train, tree, SimMesh, MarkovLM = mods
     sim = SimMesh(WORKERS)
-    data = MarkovLM(vocab=cfg.vocab_size, seed=0)
-    batches = []
-    for i in range(ZOO_STEPS):
-        toks = torch.tensor(data.sample(WORKERS, SEQ, step=i), device="cuda")
-        batches.append(sim.shard({"tokens": toks[:, :-1], "labels": toks[:, 1:]}))
+    batches = llama_batches(torch, MarkovLM, cfg, sim, ZOO_STEPS)
     per_leaf = (2 * n_leaves + n_vectors, 2 * n_leaves + n_vectors, 0)
     out, bucketed = {}, None
     for name in LLAMA_ZOO:
@@ -2080,11 +2104,7 @@ def weighted_llama_phase(torch, mods, kernel_mods, cfg, compressors,
     records per step.  Returns {path: launches}."""
     tree, SimMesh, MarkovLM = mods[1], mods[2], mods[3]
     sim = SimMesh(WORKERS)
-    data = MarkovLM(vocab=cfg.vocab_size, seed=0)
-    batches = []
-    for i in range(WEIGHTED_STEPS):
-        toks = torch.tensor(data.sample(WORKERS, SEQ, step=i), device="cuda")
-        batches.append(sim.shard({"tokens": toks[:, :-1], "labels": toks[:, 1:]}))
+    batches = llama_batches(torch, MarkovLM, cfg, sim, WEIGHTED_STEPS)
     psgd = lambda: compressors.make_compressor("powersgd", rank=RANK)
     topk = lambda: compressors.make_compressor("top_k", rank=RANK,
                                                wire_dtype="int4")
@@ -2253,11 +2273,7 @@ def warmup_llama_phase(torch, mods, kernel_mods, cfg, compressors,
     step ms and peak GiB.  Returns the run's launches."""
     train, tree, SimMesh, MarkovLM = mods
     sim = SimMesh(WORKERS)
-    data = MarkovLM(vocab=cfg.vocab_size, seed=0)
-    batches = []
-    for i in range(WARMUP_FULL_STEPS):
-        toks = torch.tensor(data.sample(WORKERS, SEQ, step=i), device="cuda")
-        batches.append(sim.shard({"tokens": toks[:, :-1], "labels": toks[:, 1:]}))
+    batches = llama_batches(torch, MarkovLM, cfg, sim, WARMUP_FULL_STEPS)
     # the identity compressor's dense steps from the same initial state; its
     # parameters and momentum wait on the host, so that the warm-up run
     # below has the card to itself
@@ -2433,11 +2449,7 @@ def adaptive_llama_phase(torch, mods, kernel_mods, cfg, pm, powersgd,
     run's launches."""
     train, tree, SimMesh, MarkovLM = mods
     sim = SimMesh(WORKERS)
-    data = MarkovLM(vocab=cfg.vocab_size, seed=0)
-    batches = []
-    for i in range(ADAPTIVE_STEPS):
-        toks = torch.tensor(data.sample(WORKERS, SEQ, step=i), device="cuda")
-        batches.append(sim.shard({"tokens": toks[:, :-1], "labels": toks[:, 1:]}))
+    batches = llama_batches(torch, MarkovLM, cfg, sim, ADAPTIVE_STEPS)
     stats = CollectiveStats()
     hyper = train.TrainHyper(rank_schedule=ADAPTIVE_SCHEDULE, track_residual=True)
     step, init = train.make_sim_train_step(cfg, sim, hyper, stats=stats)
@@ -2582,6 +2594,373 @@ def adaptive_small_phase(torch, pmods, pm, powersgd, kernel_mods, n_buckets):
     return out
 
 
+# Orthogonalizers (phase 14): every name ``get_orthogonalizer`` takes, each
+# orthogonalizing the reduced P of every bucket once a power iteration. (a)
+# At the P slabs of three paths, the worker copies folded into B as phase 2
+# folds them (Llama's six at r = 2, W = 2; ResNet-18's twelve at r = 2 and
+# the LSTM's two at r = 4, W = 16): device ms, host µs, kernels,
+# synchronizations and CUDA-graph capture of one pass over a set beside the
+# bytes' bound, each result held against the same call on the CPU.  The
+# first element of every slab is ill-conditioned (its last column is its
+# first plus ORTH_ILL_DELTA of noise, κ ≈ 2e4), so gs_cholqr takes both
+# branches; Gram-Schmidt's projector error there is rounding noise of up
+# to κ·ulp, so card and CPU may choose otherwise on it.  (b) Phase 6's full width, ORTH_STEPS steps under each name from
+# one initial state.  (c) Phase 3's reduced model, card against CPU, under
+# the two CholeskyQR names.  (d) runs inside phase 5's group
+# (``dist_orth``).
+
+ORTHS = ("gram_schmidt", "cholesky_qr", "gs_cholqr")
+ORTH_STEPS = 3
+ORTH_ILL_DELTA = 1e-4
+# card against CPU, per element: tests/test_torch_orthogonalize.py's
+# tolerance for well-conditioned input (gs_cholqr keeps Gram-Schmidt
+# there), and κ·ulp for the ill-conditioned element, the CPU tests' rule
+# for an element gs_cholqr replaces
+ORTH_ATOL = {"gram_schmidt": 1e-5, "cholesky_qr": 1e-6, "gs_cholqr": 1e-5}
+# flops per n·r² of one (n, r) matrix: Gram-Schmidt's norms, projections
+# and updates 4; CholeskyQR2's two Grams and two solves 6; gs_cholqr both
+# and the Gram of the Gram-Schmidt result 12
+ORTH_FLOPS = {"gram_schmidt": 4, "cholesky_qr": 6, "gs_cholqr": 12}
+
+
+def orth_inputs(torch, shapes, workers, seed):
+    """Per P slab ``(count, n, r)``: the CPU slab ``(workers·count, n, r)``
+    (``workers`` copies of one draw whose element 0 is ill-conditioned), its
+    card copy, and κ of each element of the draw."""
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for count, n, r in shapes:
+        base = torch.randn((count, n, r), generator=gen)
+        base[0, :, r - 1] = base[0, :, 0] + ORTH_ILL_DELTA * base[0, :, r - 1]
+        kappa = torch.linalg.cond(base.double()).tolist()
+        cpu = base.repeat(workers, 1, 1)
+        out.append((cpu, cpu.cuda(), kappa))
+    return out
+
+
+def profile_kernels(torch, run):
+    """(device operations, their device ms, the five that take the most) of
+    one ``run()`` under torch.profiler: kernels, copies and fills.  The
+    profiler can drop the first device records of a session, so ``run()``
+    goes once unmarked and once inside a marked range, and only the device
+    records that start inside the range count (the range's own device-side
+    record aside)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+        with record_function("chip_smoke_counted_run"):
+            run()
+            torch.cuda.synchronize()
+    events = prof.events()
+    mark = next(e for e in events if e.name == "chip_smoke_counted_run")
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and e.name != mark.name
+           and mark.time_range.start <= e.time_range.start <= mark.time_range.end]
+    by_name = {}
+    for e in dev:
+        ms, calls = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, calls + 1)
+    top = [{"name": name[:80], "ms": ms, "calls": calls} for name, (ms, calls)
+           in sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:5]]
+    return len(dev), sum(e.time_range.elapsed_us() for e in dev) / 1e3, top
+
+
+def sync_sites(torch, run):
+    """The synchronizing calls torch makes in one ``run()``
+    (``set_sync_debug_mode``), as ``file:line`` of the Python frame that made
+    each.  A synchronization inside a library shows as a failed CUDA-graph
+    capture instead (``orth_graph_phase``)."""
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
+            if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+def orth_set_phase(torch, orthogonalize, what, inputs, workers, peaks, smi):
+    """(a) at one slab set, for each of ORTHS: one pass calls the
+    orthogonalizer once a slab.  Device ms of a pass by CUDA events and the
+    profiler's device time of its kernels; host µs a call, from an idle
+    device; kernels a call; torch's synchronizations (a library's shows as
+    a failed capture, ``orth_graph_phase``); the bytes' bound (P read and
+    P̂ written once).  Each result against the
+    CPU's within ORTH_ATOL (κ·ulp for the ill-conditioned element), a
+    second pass bit-equal to the first, and the largest difference between
+    worker copies of one P printed (a reduction's order on the card can
+    follow a row's alignment in the batch; no path batches copies of one
+    P).  gs_cholqr's choice as the CPU's on every well-conditioned element
+    (its margin printed); on the ill-conditioned one both choices are
+    printed, and the card's result is held against the CPU's run of the
+    candidate the card chose.  Returns the rows."""
+    _, bw, fp32 = peaks
+    ulp = torch.finfo(torch.float32).eps
+    tol = 1024.0 * ulp                        # gs_cholqr's projector test
+    shapes = [tuple(c.shape) for c, _, _ in inputs]
+    numel = sum(c.numel() for c, _, _ in inputs)
+    rows = []
+    for name in ORTHS:
+        f = orthogonalize.get_orthogonalizer(name)
+        run = lambda: [f(card) for _, card, _ in inputs]
+        run()
+        torch.cuda.synchronize()
+        syncs = sync_sites(torch, run)
+        # one call at a time from an idle device: a call's launches never
+        # fill the device's queue, so the host never waits for room
+        host_ms = []
+        for _ in range(3):
+            for _, card, _ in inputs:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                f(card)
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        events_ms = time_ms(torch, run, 10)
+        kernels, kernel_ms, top = profile_kernels(torch, run)
+        outs = run()
+        if not all(torch.equal(a, b) for a, b in zip(outs, run())):
+            raise AssertionError(f"orthogonalizers {what} {name}: a second pass "
+                                 f"gave other bits")
+        err, worst, copies, choices = 0.0, 0.0, [], []
+        for (cpu, card, kappa), got in zip(inputs, outs):
+            count = len(kappa)
+            got = got.cpu()
+            want = f(cpu)
+            if name == "gs_cholqr":
+                e_cpu = orthogonalize.projector_error(orthogonalize.gram_schmidt(cpu))
+                e_card = orthogonalize.projector_error(
+                    orthogonalize.gram_schmidt(card)).cpu()
+                keep_cpu, keep_card = e_cpu <= tol, e_card <= tol
+                well = torch.ones(cpu.shape[0], dtype=torch.bool)
+                well[::count] = False
+                if not torch.equal(keep_cpu[well], keep_card[well]):
+                    raise AssertionError(f"orthogonalizers {what} {tuple(cpu.shape)}: "
+                                         f"gs_cholqr chose otherwise on the card for "
+                                         f"a well-conditioned element")
+                # each element against the CPU's run of the candidate the
+                # card chose: on the ill-conditioned element Gram-Schmidt's
+                # error is rounding noise up to κ·ulp, so the two may choose
+                # otherwise there
+                want = torch.where(keep_card[:, None, None],
+                                   orthogonalize.gram_schmidt(cpu),
+                                   orthogonalize.cholesky_qr(cpu))
+                margin = lambda e: torch.maximum(e, torch.full_like(e, tol)) / torch.clamp(
+                    torch.minimum(e, torch.full_like(e, tol)), min=1e-30)
+                choices.append({
+                    "shape": list(cpu.shape), "kept_gs": int(keep_card.sum()),
+                    "well_min_margin": (torch.minimum(margin(e_cpu), margin(e_card))[
+                        well].min().item() if well.any() else None),
+                    "ill_error_cpu": e_cpu[0].item(), "ill_error_card": e_card[0].item(),
+                    "ill_keep_cpu": bool(keep_cpu[0]),
+                    "ill_keep_card": bool(keep_card[0])})
+            atol = torch.full((cpu.shape[0],), ORTH_ATOL[name])
+            atol[::count] = max(ORTH_ATOL[name], kappa[0] * ulp)
+            diff = (got - want).abs().amax(dim=(-2, -1))
+            if not torch.isfinite(got).all() or not (diff <= atol).all():
+                raise AssertionError(f"orthogonalizers {what} {name} "
+                                     f"{tuple(cpu.shape)}: card and CPU differ by "
+                                     f"{diff.max().item():.3e}")
+            err = max(err, diff.max().item())
+            worst = max(worst, (diff / atol).max().item())
+            per_worker = got.reshape((workers, count) + tuple(got.shape[1:]))
+            copies.append((per_worker - per_worker[0]).abs().max().item())
+        flops = ORTH_FLOPS[name] * sum(c.shape[0] * c.shape[1] * c.shape[2] ** 2
+                                       for c, _, _ in inputs)
+        byte_ms, op_ms = 8 * numel / bw * 1e3, flops / fp32 * 1e3
+        host = statistics.median(host_ms)   # ms a call
+        row = {"check": "orthogonalizer", "set": what, "orthogonalizer": name,
+               "card": smi, "slabs": shapes, "calls": len(inputs),
+               "events_ms": events_ms, "kernel_ms": kernel_ms,
+               "host_us_per_call": host * 1e3,
+               "kernels": kernels, "kernels_per_call": kernels / len(inputs),
+               "top_kernels": top,
+               "syncs": len(syncs), "sync_sites": sorted(set(syncs)),
+               "bound_ms": max(byte_ms, op_ms),
+               "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+               "max_abs_err_vs_cpu": err, "worst_share_of_tolerance": worst,
+               "copies_bit_identical": not any(copies),
+               "copies_max_diff_by_slab": copies}
+        if choices:
+            row["choices"] = choices
+            row["ill_choices_differ"] = sum(c["ill_keep_cpu"] != c["ill_keep_card"]
+                                            for c in choices)
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del outs
+    return rows
+
+
+def orth_graph_phase(torch, orthogonalize, sets, rows):
+    """Whether one pass of each orthogonalizer over each slab set captures
+    into a CUDA graph, and its device ms by graph replay (the host's launch
+    gaps left out).  A synchronization inside a library fails the capture,
+    so a pass that captures has none.  Run last: a capture that fails ends
+    only its own graph.  A pass torch found synchronizing is not
+    captured."""
+    for row in rows:
+        inputs = sets[row["set"]][0]
+        if row["syncs"]:
+            row["graph"] = "not attempted: the pass synchronizes"
+        else:
+            f = orthogonalize.get_orthogonalizer(row["orthogonalizer"])
+            try:
+                row["graph_ms"] = graph_ms(
+                    torch, lambda: [f(card) for _, card, _ in inputs], 3)
+                row["graph"] = "captured"
+            except RuntimeError as e:
+                row["graph"] = f"capture failed: {str(e)[:300]}"
+                torch.cuda.synchronize()
+        print(json.dumps({"check": "orthogonalizer graph", "set": row["set"],
+                          "orthogonalizer": row["orthogonalizer"],
+                          "graph": row["graph"], "graph_ms": row.get("graph_ms"),
+                          "events_ms": row["events_ms"],
+                          "bound_ms": row["bound_ms"]}), flush=True)
+
+
+def orth_llama_phase(torch, mods, kernel_mods, cfg, CollectiveStats, n_buckets,
+                     psgd_run, smi):
+    """(b): phase 6's full width, ORTH_STEPS steps under each of ORTHS
+    (``TrainHyper(orthogonalizer=…)``) from one initial state, launch counts
+    set to 0 just before each run and read just after.  Step ms, peak GiB
+    above what was allocated before the run, B1b/B2b launches (one a
+    bucket a step), collective records (2 reduces a step, Gram-Schmidt's
+    sizes), losses and the largest parameter difference from the
+    Gram-Schmidt run (printed, not held: another orthogonalizer gives
+    another basis of nearly the same span).  ``psgd_run`` holds phase 6's
+    median step ms and peak GiB.  Returns the launches by name."""
+    train, tree, SimMesh, MarkovLM = mods
+    sim = SimMesh(WORKERS)
+    batches = llama_batches(torch, MarkovLM, cfg, sim, ORTH_STEPS)
+    runs, first, problems = {}, None, []
+    for name in ORTHS:
+        stats = CollectiveStats()
+        step, init = train.make_sim_train_step(
+            cfg, sim, train.TrainHyper(orthogonalizer=name), stats=stats)
+        base = torch.cuda.memory_allocated()
+        params, ef = init(torch.Generator("cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches(kernel_mods)
+        rows = []
+        for i, batch in enumerate(batches):
+            stats.reset()
+            t0 = time.perf_counter()
+            params, ef, metrics = step(params, ef, batch)
+            loss = metrics["lm_loss"].item()
+            torch.cuda.synchronize()
+            rows.append({"lm_loss": loss, "step_ms": (time.perf_counter() - t0) * 1e3,
+                         "records": collective_records(stats)[:2]})
+            print(f"orthogonalizer {name} step {i} lm_loss={loss:.6f} "
+                  f"step_ms={rows[-1]['step_ms']:.1f}", flush=True)
+        launches = read_all_launches(kernel_mods)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        if not all_finite(torch, tree, params, ef.error, ef.momentum, ef.comp):
+            problems.append(f"{name}: non-finite state")
+        if first is None:
+            first, diff = params, 0.0
+        else:
+            diff = max((a - b).abs().max().item()
+                       for a, b in zip(tree.leaves(params), tree.leaves(first)))
+        runs[name] = {"losses": [r["lm_loss"] for r in rows],
+                      "step_ms": [r["step_ms"] for r in rows],
+                      "median_step_ms": statistics.median(r["step_ms"] for r in rows),
+                      "peak_gib_above_start": peak, "launches": launches,
+                      "records": [r["records"] for r in rows],
+                      "max_abs_param_diff_vs_gram_schmidt": diff}
+        want = {k: 0 for k in launches}
+        want.update(lowrank_project=ORTH_STEPS * n_buckets,
+                    lowrank_backproject=ORTH_STEPS * n_buckets)
+        if launches != want:
+            problems.append(f"{name}: launches {launches}, want {want}")
+        if runs[name]["records"] != runs[ORTHS[0]]["records"] or any(
+                r["records"][0] != ["reduce", "reduce"] for r in rows):
+            problems.append(f"{name}: records {runs[name]['records']}")
+        if not all(math.isfinite(v) for v in runs[name]["losses"]):
+            problems.append(f"{name}: losses {runs[name]['losses']}")
+        del step, init, params, ef
+        torch.cuda.empty_cache()
+    del first, batches
+    torch.cuda.empty_cache()
+    print(json.dumps({"check": "orthogonalizers llama", "card": smi,
+                      "workers": WORKERS, "steps": ORTH_STEPS, "runs": runs,
+                      "phase6_median_step_ms": psgd_run["median_step_ms"],
+                      "phase6_peak_gib": psgd_run["peak_gib"]}), flush=True)
+    if problems:
+        raise AssertionError(f"orthogonalizers llama: {problems}")
+    return {name: run["launches"] for name, run in runs.items()}
+
+
+def orth_small_phase(torch, pmods, compressors):
+    """(c): phase 3's reduced Llama-3-8B at W = 2, card against CPU, under
+    each CholeskyQR orthogonalizer through ``make_compressor``, phase 3's
+    PowerSGD rule."""
+    for name in ORTHS[1:]:
+        parity_phase(torch, pmods, f"powersgd {name}",
+                     lambda name=name: compressors.make_compressor(
+                         "powersgd", rank=RANK, orthogonalizer=name),
+                     check_powersgd_parity)
+
+
+def dist_orth(torch, mods, kernel_mods, cfg, CollectiveStats, pdist, n_buckets,
+              smi, batches):
+    """Phase 14 (d), inside phase 5's group: DIST_STEPS steps of
+    ``make_train_step`` under ``TrainHyper(orthogonalizer="cholesky_qr")``
+    against ``make_sim_train_step`` on ``SimMesh(1)``: phase 3's rule held,
+    bit equality printed (expected: one batch layout on both paths).
+    Records as the simulated step's, 3 ``all_reduce`` calls a step, B1b
+    and B2b once a bucket a step; launch counts and calls set to 0 just
+    before the distributed run and read just after.  Returns the
+    launches."""
+    tree = mods[1]
+    n = len(batches)
+    hyper = mods[0].TrainHyper(orthogonalizer="cholesky_qr")
+    sim_stats, stats = CollectiveStats(), CollectiveStats()
+    l_sim, ms_sim, _, p_sim, _ = dist_run(torch, mods, cfg, "sim", None, sim_stats,
+                                          batches, hyper)
+    torch.cuda.empty_cache()
+    reset_all_launches(kernel_mods)
+    pdist.reset_calls()
+    l_dist, ms_dist, peak_dist, p_dist, _ = dist_run(torch, mods, cfg, "dist", None,
+                                                     stats, batches, hyper)
+    launches = read_all_launches(kernel_mods)
+    real_calls = dict(pdist.CALLS)
+    p_sim, p_dist = tree.leaves(p_sim), tree.leaves(p_dist)
+    max_diff = max((a - b).abs().max().item() for a, b in zip(p_sim, p_dist))
+    print(json.dumps({
+        "check": "orthogonalizer dist", "card": smi, "orthogonalizer": "cholesky_qr",
+        "steps": n, "losses_dist": l_dist, "losses_sim": l_sim,
+        "bit_equal": l_sim == l_dist and max_diff == 0.0,
+        "max_abs_param_diff": max_diff, "step_ms_dist": ms_dist,
+        "step_ms_sim": ms_sim, "peak_gib_dist": peak_dist,
+        "dist_calls": real_calls, "launches": launches}), flush=True)
+    check_powersgd_parity("powersgd cholesky_qr", l_sim, l_dist, p_sim, p_dist,
+                          check="dist_vs_sim")
+    del p_sim, p_dist
+    torch.cuda.empty_cache()
+    problems = []
+    if collective_records(stats) != collective_records(sim_stats) or (
+            stats.kinds != ["reduce"] * 2 * n):
+        problems.append(f"records {stats.kinds} {stats.sizes}")
+    if real_calls != {"all_reduce": 3 * n, "all_gather": 0}:
+        problems.append(f"torch.distributed calls {real_calls}")
+    want = {name: 0 for name in launches}
+    want.update(lowrank_project=n * n_buckets, lowrank_backproject=n * n_buckets)
+    if launches != want:
+        problems.append(f"launches {launches}, want {want}")
+    if problems:
+        raise AssertionError(f"orthogonalizer dist: {problems}")
+    return launches
+
+
 def int4_chunk(torch, cfg, model, matrixize, tree, workers, scheme="top_k"):
     """(chunk, parts, (workers, codes)): the int4 chunk ``scheme``'s gather
     packs each step on ``cfg``, the payload parts it plans from (meta
@@ -2608,6 +2987,16 @@ def int4_chunk(torch, cfg, model, matrixize, tree, workers, scheme="top_k"):
     plan = matrixize.plan_flat(parts, wire_dtype="int4", lead=1)
     chunk = next(c for c in plan.chunks if c.quant)
     return chunk, parts, (workers, 2 * sum(matrixize.quant_slot_sizes(chunk)))
+
+
+def paper_buckets(bench, resnet, lstm):
+    """The bucket plans of the paper's ResNet-18 and LSTM, found on the
+    meta device."""
+    params = {"resnet18": (resnet, resnet.init(resnet.paper_resnet18(), None,
+                                               device="meta")[0]),
+              "lstm": (lstm, lstm.init(lstm.paper_lstm(), None, device="meta"))}
+    return {path: bench.tree_buckets(p, mod.mspecs(p))
+            for path, (mod, p) in params.items()}
 
 
 def leaf_slabs(cfg, model, matrixize, tree, workers):
@@ -2647,7 +3036,7 @@ def main() -> None:
     from repro_torch.bench import tables
     from repro_torch.configs.base import get_config
     from repro_torch.configs import llama3_8b
-    from repro_torch.core import compressors, matrixize, powersgd
+    from repro_torch.core import compressors, matrixize, orthogonalize, powersgd
     from repro_torch.core import dist as pdist
     from repro_torch.core.dist import CollectiveStats
     from repro_torch.core.simmesh import SimMesh
@@ -2723,12 +3112,8 @@ def main() -> None:
         resnet=resnet, lstm=lstm, SimMesh=SimMesh, GaussianClusters=GaussianClusters,
         MarkovLM=MarkovLM, compressors=compressors, error_feedback=error_feedback,
         schedules=schedules, train=train, tree=tree, bench=bench, model=model)
-    for path, mod, params in (
-            ("resnet18", resnet, resnet.init(resnet.paper_resnet18(), None,
-                                             device="meta")[0]),
-            ("lstm", lstm, lstm.init(lstm.paper_lstm(), None, device="meta"))):
-        paper_slabs = [(PAPER_WORKERS * bk.count, bk.n, bk.m)
-                       for bk in bench.tree_buckets(params, mod.mspecs(params))]
+    for path, pbuckets in paper_buckets(bench, resnet, lstm).items():
+        paper_slabs = [(PAPER_WORKERS * bk.count, bk.n, bk.m) for bk in pbuckets]
         rows = slab_set_phase(torch, lowrank, ref, f"{path} slabs", paper_slabs,
                               peaks, seed=5, rank=PAPER[path][0])
         words = [r for r in rows if r["vec"] == 1]
@@ -2898,6 +3283,27 @@ def main() -> None:
         psgd_run, smi, peaks)
     print(f"adaptive: {time.perf_counter() - t_adaptive:.1f} s (and (c) in phase 5)")
 
+    # -- 14. the orthogonalizers ----------------------------------------------
+    t_orth = time.perf_counter()
+    p_buckets = paper_buckets(bench, resnet, lstm)
+    orth_sets = {
+        "llama": (orth_inputs(torch, [(bk.count, bk.n, RANK) for bk in buckets],
+                              WORKERS, seed=14), WORKERS),
+        **{path: (orth_inputs(torch, [(bk.count, bk.n, PAPER[path][0])
+                                      for bk in p_buckets[path]],
+                              PAPER_WORKERS, seed=15), PAPER_WORKERS)
+           for path in PAPER}}
+    orth_rows = [row for what, (inputs, workers) in orth_sets.items()
+                 for row in orth_set_phase(torch, orthogonalize, what, inputs,
+                                           workers, peaks, smi)]
+    orth_launches = orth_llama_phase(torch, tmods, kernel_mods, cfg,
+                                     CollectiveStats, len(buckets), psgd_run, smi)
+    orth_small_phase(torch, pmods, compressors)
+    orth_graph_phase(torch, orthogonalize, orth_sets, orth_rows)
+    del orth_sets
+    print(f"orthogonalizers: {time.perf_counter() - t_orth:.1f} s (and (d) in "
+          f"phase 5)")
+
     # launches of each kernel on every path this run drove
     paths = {"llama powersgd": psgd, "llama top_k_int4": topk,
              **{f"dist {k}": v for k, v in dist_launches.items()},
@@ -2908,7 +3314,8 @@ def main() -> None:
              **paper_launches,
              **{f"weighted {k}": v for k, v in weighted_launches.items()},
              **{f"warmup {k}": v for k, v in warmup_launches.items()},
-             **{f"adaptive {k}": v for k, v in adaptive_launches.items()}}
+             **{f"adaptive {k}": v for k, v in adaptive_launches.items()},
+             **{f"orthogonalizers llama {k}": v for k, v in orth_launches.items()}}
     by_path = lambda kernel: {p: v[kernel] for p, v in paths.items() if v[kernel]}
 
     summary = []

@@ -1,15 +1,31 @@
 """Orthogonalization of the tall-skinny P factor (port of
-``repro.core.orthogonalize``: the paper's Gram-Schmidt).
+``repro.core.orthogonalize``).
 
-``gram_schmidt`` works on ``(..., n, r)`` and is batched over leading dims,
-so the ``(B, n, r)`` slabs of the bucketed engine go through in one call.
-Zero-padded rows are exact no-ops.  ``cholesky_qr`` and ``gs_cholqr`` are
-not ported yet (ROADMAP queue A, item 8).
+Three implementations, each on ``(..., n, r)`` and batched over leading
+dims, so the ``(B, n, r)`` slabs of the bucketed engine go through in one
+call.  Zero-padded rows are exact no-ops: they add nothing to any column
+inner product.
+
+* ``gram_schmidt`` — the paper's choice, scale-invariant and ULP-guarded
+  (numerically rank-deficient columns become exact zero columns).
+* ``cholesky_qr`` — CholeskyQR2: ``L = chol(PᵀP + jitter·I)``,
+  ``P̂ = P L⁻ᵀ``, done twice.  Two tall-skinny products and batched r×r
+  factorizations instead of a column loop.
+* ``gs_cholqr`` — ``gram_schmidt`` with a per-matrix CholeskyQR2 fallback
+  where the Gram-Schmidt output is not a projector to within a dtype-ULP
+  budget.
+
+A factorization that fails (a Gram matrix that is not positive definite,
+or a non-finite one) gives that element a NaN factor, as the JAX package's
+``jnp.linalg.cholesky`` does, and never raises: ``cholesky_ex`` reports it
+per element on the device, with no host sync.
 """
 
 from __future__ import annotations
 
 import torch
+
+_EPS = 1e-8
 
 
 def gram_schmidt(p: torch.Tensor) -> torch.Tensor:
@@ -44,15 +60,70 @@ def gram_schmidt(p: torch.Tensor) -> torch.Tensor:
     return m
 
 
-ORTHOGONALIZERS = {"gram_schmidt": gram_schmidt}
-NOT_PORTED = ("cholesky_qr", "gs_cholqr")
+def cholesky_or_nan(gram: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of each ``(..., r, r)`` matrix; where the
+    factorization fails, NaN on and below the diagonal, as
+    ``jnp.linalg.cholesky`` gives (``cholesky_ex`` leaves a partial factor
+    there).  Never raises and never syncs with the host."""
+    r = gram.shape[-1]
+    chol, info = torch.linalg.cholesky_ex(gram)
+    nan_lower = torch.full((r, r), float("nan"), dtype=gram.dtype,
+                           device=gram.device).tril()
+    return torch.where((info != 0)[..., None, None], nan_lower, chol)
+
+
+def _cholesky_qr_once(p: torch.Tensor, eps: float) -> torch.Tensor:
+    r = p.shape[-1]
+    gram = torch.einsum("...nr,...ns->...rs", p, p)
+    # scale-aware jitter: it must dominate the rounding noise of the Gram
+    # entries, O(ulp·‖G‖), or near-rank-deficient P fails to factor
+    scale = torch.diagonal(gram, dim1=-2, dim2=-1).sum(-1)[..., None, None] / r
+    ulp = torch.finfo(p.dtype).eps
+    gram = gram + (eps + 64.0 * ulp * scale) * torch.eye(
+        r, dtype=p.dtype, device=p.device)
+    chol = cholesky_or_nan(gram)
+    # solve P̂ Lᵀ = P  ⇒  P̂ = P L⁻ᵀ
+    return torch.linalg.solve_triangular(chol.mT, p, upper=True, left=False)
+
+
+def cholesky_qr(p: torch.Tensor, eps: float = _EPS) -> torch.Tensor:
+    """CholeskyQR2.  One pass loses orthogonality as κ²(P)·ε; a second pass
+    on its own output squares the residual away (Yamamoto et al. 2015).
+    The solve returns P̂ column-major; the low-rank kernels read it
+    row-major, so the result is made contiguous."""
+    return _cholesky_qr_once(_cholesky_qr_once(p, eps), eps).contiguous()
+
+
+def gs_cholqr(p: torch.Tensor, eps: float = _EPS) -> torch.Tensor:
+    """``gram_schmidt`` with a per-matrix CholeskyQR2 stability fallback.
+
+    Keeps the Gram-Schmidt result where its Gram matrix ``G = QᵀQ`` is a
+    projector (``max|G² − G| ≤ 1024·ulp``, which accepts the exact-zero
+    columns of rank-deficient input); elsewhere that batch element takes
+    the CholeskyQR2 result.  Both candidates are computed for every
+    element and selected on the device, so this costs one extra
+    orthogonalization pass.
+    """
+    q = gram_schmidt(p)
+    keep = projector_error(q) <= 1024.0 * torch.finfo(p.dtype).eps
+    return torch.where(keep[..., None, None], q, cholesky_qr(p, eps))
+
+
+def projector_error(q: torch.Tensor) -> torch.Tensor:
+    """``max|G² − G|`` over each matrix's ``G = QᵀQ``, shape ``q.shape[:-2]``:
+    the test ``gs_cholqr`` puts to the Gram-Schmidt result."""
+    gram = torch.einsum("...nr,...ns->...rs", q, q)
+    return (gram @ gram - gram).abs().amax(dim=(-2, -1))
+
+
+ORTHOGONALIZERS = {
+    "gram_schmidt": gram_schmidt,
+    "cholesky_qr": cholesky_qr,
+    "gs_cholqr": gs_cholqr,
+}
 
 
 def get_orthogonalizer(name: str):
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"orthogonalizer {name!r} is not ported yet (ROADMAP queue A, "
-            f"item 8)")
     try:
         return ORTHOGONALIZERS[name]
     except KeyError:

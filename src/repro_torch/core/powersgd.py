@@ -234,10 +234,14 @@ def transition_factor(q: torch.Tensor, new_rank: int,
                       path=()) -> torch.Tensor:
     """One warm-start factor ``(..., m, r)`` moved to ``(..., m, new_rank)``.
 
-    The retained columns are the old ones bit for bit: a decrease keeps the
-    leading ``new_rank`` columns (Gram–Schmidt takes the columns in order,
-    so these carry the dominant directions), as a new dense tensor, so the
-    kernels see a dense factor and the old storage can go; an increase
+    The retained columns are the old ones bit for bit, under any
+    orthogonalizer: a decrease keeps the leading ``new_rank`` columns (every
+    orthogonalizer takes the columns in order, P̂'s column j in the span of
+    P's first j + 1, so these carry the dominant directions), as a new
+    dense tensor, so the kernels see a dense factor and the old storage can
+    go.  Under ``cholesky_qr`` the jitter scales with trace(PᵀP)/r, so the
+    P̂ a rank-r step makes does not begin with the P̂ a rank-k step would
+    make, as in the JAX package (ROADMAP C3); an increase
     appends ``draw(path, (m, new_rank − r))``, fresh standard-normal
     columns drawn once and broadcast over any batch dims.  The same rank
     returns ``q`` itself."""

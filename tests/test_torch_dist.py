@@ -13,7 +13,9 @@ one worker each, started once for the whole file.
   parameters and Q factors on the same batches (rank i takes row i of the
   reference's per-worker batch): 5 PowerSGD steps and 3 Top-K steps on the
   int4 gather wire, under the tolerances of ``tests/test_torch_train.py``
-  and ``tests/test_torch_topk.py`` (loss rtol 1e-5, parameters atol 2e-6).
+  and ``tests/test_torch_topk.py`` (loss rtol 1e-5, parameters atol 2e-6),
+  and 3 PowerSGD steps under ``TrainHyper(orthogonalizer="cholesky_qr")``
+  against the reference's under the same hyperparameters.
   Momentum, Q factors and rank i's error buffer (against the reference's
   ``error[i]``) need more: atol 1e-5 (see
   :func:`test_steps_match_reference`).
@@ -86,7 +88,7 @@ def _one_thread():
 pytestmark = pytest.mark.timeout(180)
 
 W, BATCH, SEQ = 4, 8, 32
-STEPS = {"powersgd": 5, "top_k": 3}
+STEPS = {"powersgd": 5, "top_k": 3, "cholesky_qr": 3}
 ZOO_STEPS = {"random_k": 2, "sign_norm": 2}
 WARMUP_STEPS, WARMUP_K = 4, 2   # (f): PowerSGD, dense through step k − 1
 RANK_SCHEDULE, RANK_STEPS = "2@0,4@1,1@3", 4   # (g): ranks 2, 4, 4, 1
@@ -106,9 +108,13 @@ def _compressor(path):
     return None
 
 
-def _hyper(start_compress_step=0):
+def _hyper(start_compress_step=0, path="powersgd"):
+    """``path`` "cholesky_qr": PowerSGD under ``TrainHyper``'s
+    ``orthogonalizer="cholesky_qr"``."""
+    orth = "cholesky_qr" if path == "cholesky_qr" else "gram_schmidt"
     return train.TrainHyper(q_chunk=16, warmup_steps=2,
-                            start_compress_step=start_compress_step)
+                            start_compress_step=start_compress_step,
+                            orthogonalizer=orth)
 
 
 def _batches(vocab, steps):
@@ -194,7 +200,7 @@ def _rank_steps(rank, path, start, batches, start_compress_step=0):
     batch."""
     cfg = llama3_8b.reduced_config()
     stats = dist.CollectiveStats()
-    step, _ = train.make_train_step(cfg, _hyper(start_compress_step),
+    step, _ = train.make_train_step(cfg, _hyper(start_compress_step, path),
                                     _compressor(path), stats=stats, device="cpu")
     params = bridge.to_torch(start["params"])
     ef = EFState(error=tree.map(torch.zeros_like, params),
@@ -360,10 +366,12 @@ def _reference(path, start_compress_step=0):
     sim, jstats = JSimMesh(W), jdist.CollectiveStats()
     comp = (jcomp.make_compressor("top_k", rank=2, wire_dtype="int4")
             if path == "top_k" else None)
+    orth = "cholesky_qr" if path == "cholesky_qr" else "gram_schmidt"
     step, init = jtrain.make_sim_train_step(
         jllama.reduced_config(), sim,
         jtrain.TrainHyper(remat=False, q_chunk=16, warmup_steps=2,
-                          start_compress_step=start_compress_step),
+                          start_compress_step=start_compress_step,
+                          orthogonalizer=orth),
         compressor=comp, stats=jstats)
     params, ef = init(jax.random.key(0))
     return sim, step, jstats, params, ef
@@ -569,6 +577,7 @@ def test_collectives_match_reference(run, path):
     travels in a call of its own."""
     ref = run["reference"][path]["records"]
     want_calls = {"powersgd": {"all_reduce": 3, "all_gather": 0},
+                  "cholesky_qr": {"all_reduce": 3, "all_gather": 0},
                   "top_k": {"all_reduce": 2, "all_gather": 3}}[path]
     for r in range(W):
         got = run["ranks"][r][path]
@@ -576,7 +585,7 @@ def test_collectives_match_reference(run, path):
         assert got["calls"] == {k: v * STEPS[path] for k, v in want_calls.items()}
     kinds = ref[0]
     assert ((kinds.count("reduce"), kinds.count("gather"))
-            == {"powersgd": (2, 0), "top_k": (1, 2)}[path])
+            == {"powersgd": (2, 0), "cholesky_qr": (2, 0), "top_k": (1, 2)}[path])
 
 
 # ---------------------------------------------------------------------------
@@ -739,8 +748,8 @@ def test_backend_device_mismatch_raises(run):
 def _sim_port_steps(out, path):
     """The port's ``make_sim_train_step`` at W = 4 from the ranks' start."""
     step, _ = train.make_sim_train_step(
-        llama3_8b.reduced_config(), SimMesh(W), _hyper(), _compressor(path),
-        device="cpu")
+        llama3_8b.reduced_config(), SimMesh(W), _hyper(path=path),
+        _compressor(path), device="cpu")
     start = out["inputs"]["start"][path]
     params = bridge.to_torch(start["params"])
     ef = EFState(error=tree.map(lambda p: torch.zeros((W,) + tuple(p.shape)), params),

@@ -17,7 +17,7 @@ from repro.core import powersgd as jpsgd
 from repro.core.simmesh import SimMesh as JSimMesh
 from repro_torch import bridge, tree
 from repro_torch.core import dist, engine, matrixize as mz, powersgd
-from repro_torch.core.compressors import PowerSGDCompressor
+from repro_torch.core.compressors import PowerSGDCompressor, make_compressor
 from repro_torch.core.simmesh import SimMesh
 
 
@@ -127,6 +127,44 @@ def test_compress_aggregate_matches_reference(workers, error_mode, num_iters):
     assert stats.data_collectives == stats_r.data_collectives
     assert stats.sizes == stats_r.sizes
     assert stats.itemsizes == stats_r.itemsizes
+
+
+# The two CholeskyQR2 orthogonalizers through the engine at W = 4, fed the
+# reference's Q: the reduced P of these random deltas is well conditioned
+# (gs_cholqr keeps Gram-Schmidt on every slab), so the same tolerances hold.
+@pytest.mark.parametrize("bucketing", ["auto", "off"], ids=["bucketed", "per_leaf"])
+@pytest.mark.parametrize("orthogonalizer", ["cholesky_qr", "gs_cholqr"])
+def test_compress_aggregate_orthogonalizers_match_reference(orthogonalizer,
+                                                            bucketing):
+    kw = dict(rank=2, orthogonalizer=orthogonalizer, bucketing=bucketing)
+    deltas = _deltas(4)
+    agg_r, recon_r, q_r, bits_r, stats_r, q0 = _reference(
+        jpsgd.PowerSGDConfig(**kw), deltas, 4)
+    agg, recon, q, bits, stats = _port(powersgd.PowerSGDConfig(**kw), deltas,
+                                       q0, 4)
+    _close(agg, agg_r)
+    _close(q, q_r)
+    _close(recon, recon_r, held_once=True)
+    assert bits == bits_r
+    assert stats.kinds == stats_r.kinds
+    assert stats.sizes == stats_r.sizes
+    assert stats.itemsizes == stats_r.itemsizes
+    assert stats.data_collectives == stats_r.data_collectives
+
+
+def test_orthogonalizer_variants_equivalent():
+    """The twin of the reference's test: Gram-Schmidt and CholeskyQR give
+    the same reconstruction, since P̂Qᵀ depends only on span(P̂)."""
+    m = torch.tensor(np.random.default_rng(0).standard_normal((50, 40)),
+                     dtype=torch.float32)
+    specs = {"w": mz.MatrixSpec("matrix", 0)}
+    outs = {}
+    for name in ("gram_schmidt", "cholesky_qr"):
+        comp = make_compressor("powersgd", rank=3, orthogonalizer=name)
+        state = comp.init({"w": m}, specs, torch.Generator().manual_seed(0))
+        outs[name] = comp.step({"w": m}, state, specs).agg["w"]
+    torch.testing.assert_close(outs["gram_schmidt"], outs["cholesky_qr"],
+                               atol=5e-4, rtol=0)
 
 
 # PowerSGD over the quantized reduce: each worker's P and Q slots are

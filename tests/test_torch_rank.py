@@ -16,7 +16,9 @@ package on the same numpy inputs.
 * ``train_lm`` under a staircase and a residual controller (the
   reference's columns fed in) against the reference's ``train_lm``:
   ``rank_history``, ``final_rank`` and ``compressed_floats_total`` equal,
-  ``eval_loss`` within rtol 1e-5 (the rule of ``tests/test_torch_bench.py``).
+  ``eval_loss`` within rtol 1e-5 (the rule of ``tests/test_torch_bench.py``);
+  the same under ``orthogonalizer="cholesky_qr"``, with ``2@0,4@1,1@3``
+  and at a fixed rank.
 * ``make_sim_train_step`` with ``TrainHyper(rank_schedule=…,
   track_residual=True)``: the step's ``residual_ratio`` against the
   reference's, plain and under scenario weights (reduced Llama-3-8B with
@@ -525,36 +527,56 @@ LM_SCHEDULES = {"staircase": "2@0,4@2,1@4",
                 "residual": "residual:min=1,max=4,init=2,every=2,ema=0"}
 
 
-def _lm_runs(which):
-    spec = LM_SCHEDULES[which]
-    jcomp_ = jcomp.make_compressor("powersgd", rank_schedule=spec)
-    jctl = jcomp_.controller()
+def _lm_runs(spec, **kw):
+    """Both packages' ``train_lm`` on ``LM`` from the same state; under a
+    rank schedule ``spec`` the port's controller is fed the reference's
+    columns.  ``kw`` goes to both ``make_compressor`` calls."""
+    jcomp_ = jcomp.make_compressor("powersgd", rank_schedule=spec, **kw)
+    jctl = None if spec is None else jcomp_.controller()
     want = jbench.train_lm(jcomp_, jbench.LMSpec(**LM), controller=jctl)
     lm = jbench.LMSpec(**LM)
     cfg = jbench._make_cfg(lm)
     key = jax.random.key(lm.seed)
     params = jmodel.init(key, cfg, model_shards=1)
     q0 = jef.init_state(jcomp_, params, jmodel.mspecs(cfg), key).comp
-    comp = compressors.make_compressor("powersgd", rank_schedule=spec)
-    ctl = FedController(comp.rank_schedule)
-    residuals = []
-    observe = ctl.observe
-    ctl.observe = lambda r: residuals.append(r) or observe(r)
+    comp = compressors.make_compressor("powersgd", rank_schedule=spec, **kw)
+    residuals, ctl = [], None
+    if spec is not None:
+        ctl = FedController(comp.rank_schedule)
+        observe = ctl.observe
+        ctl.observe = lambda r: residuals.append(r) or observe(r)
     got = bench.train_lm(comp, bench.LMSpec(**LM), device="cpu",
                          params=bridge.to_torch(_np(params)),
                          comp_state=bridge.to_torch(_np(q0)), controller=ctl)
-    return got, want, residuals, ctl.schedule
+    return got, want, residuals, None if ctl is None else ctl.schedule
+
+
+def _same_lm_run(got, want):
+    for key in ("rank_history", "final_rank"):    # present under a controller
+        assert (key in got) == (key in want) and got.get(key) == want.get(key)
+    assert got["compressed_floats_total"] == want["compressed_floats_total"]
+    assert got["bits_per_worker_per_step"] == want["bits_per_worker_per_step"]
+    np.testing.assert_allclose(got["eval_loss"], want["eval_loss"], rtol=1e-5)
 
 
 @pytest.mark.parametrize("which", list(LM_SCHEDULES))
 def test_train_lm_with_controller_matches_reference(which):
-    got, want, _, _ = _lm_runs(which)
-    assert got["rank_history"] == want["rank_history"]
+    got, want, _, _ = _lm_runs(LM_SCHEDULES[which])
     assert len(got["rank_history"]) >= 2          # the run switched
-    assert got["final_rank"] == want["final_rank"]
-    assert got["compressed_floats_total"] == want["compressed_floats_total"]
-    assert got["bits_per_worker_per_step"] == want["bits_per_worker_per_step"]
-    np.testing.assert_allclose(got["eval_loss"], want["eval_loss"], rtol=1e-5)
+    _same_lm_run(got, want)
+
+
+@pytest.mark.parametrize("spec", ["2@0,4@1,1@3", None],
+                         ids=["staircase", "fixed"])
+def test_train_lm_cholesky_qr_matches_reference(spec):
+    """``train_lm`` through ``make_compressor("powersgd",
+    orthogonalizer="cholesky_qr")``, under a growth and a cut (the
+    controller fed the reference's columns) and at a fixed rank, under the
+    rules above."""
+    got, want, _, _ = _lm_runs(spec, orthogonalizer="cholesky_qr")
+    if spec is not None:
+        assert [r for _, r in got["rank_history"]] == [2, 4, 1]
+    _same_lm_run(got, want)
 
 
 # ---------------------------------------------------------------------------
@@ -779,7 +801,7 @@ def test_dense_warmup_reports_no_residual():
 
 if __name__ == "__main__":
     # each residual decision's margin to its thresholds in the train_lm run
-    got, want, residuals, sched = _lm_runs("residual")
+    got, want, residuals, sched = _lm_runs(LM_SCHEDULES["residual"])
     print("rank history", got["rank_history"], "reference", want["rank_history"])
     for step, r in enumerate(residuals):
         if r is None or step % sched.every:

@@ -38,18 +38,19 @@ def _one_thread():
 W, STEPS, BATCH, SEQ = 4, 5, 8, 32
 
 
-def _batches(vocab):
+def _batches(vocab, steps=STEPS):
     data = MarkovLM(vocab=vocab, seed=0, order=1)
-    for i in range(STEPS):
+    for i in range(steps):
         toks = data.sample(BATCH, SEQ, step=i)
         yield {"tokens": toks[:, :-1], "labels": toks[:, 1:].copy()}
 
 
-@pytest.fixture(scope="module")
-def reference():
+def _reference_run(steps, **kw):
+    """``steps`` steps of the reference's simulated step; returns (start
+    params and Q, per-step losses, final params) as numpy."""
     cfg = jllama.reduced_config()
     sim = JSimMesh(W)
-    hyper = jtrain.TrainHyper(remat=False, q_chunk=16, warmup_steps=2)
+    hyper = jtrain.TrainHyper(remat=False, q_chunk=16, warmup_steps=2, **kw)
     step, init = jtrain.make_sim_train_step(cfg, sim, hyper)
     params, ef = init(jax.random.key(0))
     first = lambda t: jax.tree_util.tree_map(
@@ -57,38 +58,68 @@ def reference():
         is_leaf=lambda x: x is None)
     start = (first(params), first(ef.comp))
     losses = []
-    for i, b in enumerate(_batches(cfg.vocab_size)):
+    for i, b in enumerate(_batches(cfg.vocab_size, steps)):
         params, ef, m = step(params, ef, sim.shard(b), jax.random.key(i))
         losses.append(float(m["lm_loss"][0]))
     return start, losses, first(params)
 
 
-def test_five_steps_match_reference(reference):
-    (params0, q0), ref_losses, ref_params = reference
+def _port_run(start, steps, stats, **kw):
+    """The port's simulated step from the reference's start; returns
+    (losses, final params, EF state)."""
+    params0, q0 = start
     cfg = llama3_8b.reduced_config()
     sim = SimMesh(W)
-    stats = CollectiveStats()
     step, _ = train.make_sim_train_step(
-        cfg, sim, train.TrainHyper(q_chunk=16, warmup_steps=2), stats=stats,
-        device="cpu")
+        cfg, sim, train.TrainHyper(q_chunk=16, warmup_steps=2, **kw),
+        stats=stats, device="cpu")
     params = bridge.to_torch(params0)
     ef = EFState(error=tree.map(lambda p: torch.zeros((W,) + tuple(p.shape)), params),
                  momentum=tree.map(torch.zeros_like, params),
                  comp=bridge.to_torch(q0))
-    lowrank.reset_launches()
     losses = []
-    for b in _batches(cfg.vocab_size):
+    for b in _batches(cfg.vocab_size, steps):
         params, ef, m = step(params, ef, sim.shard(
             {k: torch.tensor(v) for k, v in b.items()}))
         losses.append(m["lm_loss"].item())
+    return losses, params, ef
+
+
+def _hold(losses, params, ref_losses, ref_params):
     np.testing.assert_allclose(losses, ref_losses, rtol=1e-5)
     for (path, got), want in zip(tree.items(bridge.to_numpy(params)),
                                  tree.leaves(ref_params)):
         np.testing.assert_allclose(got, want, atol=2e-6, rtol=0, err_msg=str(path))
+
+
+@pytest.fixture(scope="module")
+def reference():
+    return _reference_run(STEPS)
+
+
+def test_five_steps_match_reference(reference):
+    start, ref_losses, ref_params = reference
+    stats = CollectiveStats()
+    lowrank.reset_launches()
+    losses, params, ef = _port_run(start, STEPS, stats)
+    _hold(losses, params, ref_losses, ref_params)
     assert ef.step == STEPS
     # 2 fused reduces per step; the CPU path never launches a CUDA kernel
     assert stats.reduce_collectives == 2 * STEPS
     assert lowrank.LAUNCHES == {"lowrank_project": 0, "lowrank_backproject": 0}
+
+
+def test_cholesky_qr_steps_match_reference():
+    """3 steps under ``TrainHyper(orthogonalizer="cholesky_qr")`` against
+    the reference's, at the same tolerances (its P slabs are well
+    conditioned)."""
+    start, ref_losses, ref_params = _reference_run(
+        3, orthogonalizer="cholesky_qr")
+    stats = CollectiveStats()
+    losses, params, ef = _port_run(start, 3, stats,
+                                   orthogonalizer="cholesky_qr")
+    _hold(losses, params, ref_losses, ref_params)
+    assert ef.step == 3 and stats.reduce_collectives == 2 * 3
 
 
 def test_init_state_layout():
