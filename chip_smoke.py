@@ -155,6 +155,25 @@ Phases, in order; any failure raises and the script exits non-zero:
               group, 3 steps of ``make_train_step`` with ``cholesky_qr``
               against ``SimMesh(1)`` (phase 3's rule, bit equality
               printed).
+15. bf16 / tuned — the bfloat16 cast wire and the α-β autotuner: reduced
+              Llama-3-8B on ``wire_dtype="bfloat16"`` card against CPU
+              under a flip rule (``check_bf16_parity``); (a) phase 6's
+              full width 5 steps on the float32 and the bfloat16 wire
+              from one initial state: step ms, peak, 6 + 6 low-rank
+              launches a step, the reduce records at itemsize 2 and half
+              the bytes, the distance between the runs; (b) Top-K on the
+              bfloat16 wire, 3 steps (1 reduce and 2 gathers, indices in
+              their int32 chunk), and one compress step at two full-width
+              leaves held against the definition of its aggregate; (c)
+              ``autotune`` over the full-width tree (10 Gbit/s NCCL model,
+              half of rank 4's bits): the plan, its host ms, 3 steps at
+              its per-bucket ranks (each low-rank call's rank read at the
+              call), the reduces' bits equal to its ``wire_bits_per_step``;
+              (d) ``train_lm`` under the tuned plan card against CPU, then
+              ``adaptive_rank_profile`` at 10 steps on the card and the
+              CPU under phase 9's rules; (e), inside phase 5's group, 3
+              PowerSGD steps of ``make_train_step`` on the bfloat16 wire
+              bit-equal to ``SimMesh(1)``.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after; the summary line gives each kernel's launches on every
@@ -1303,8 +1322,8 @@ def dist_phase(torch, mods, kernel_mods, cfg, compressors, CollectiveStats,
     PowerSGD parameters within 1e-4, Top-K parameters under the flip rule)
     with the simulated step in the CPU's place.  Every launch count and the
     count of ``torch.distributed`` calls are set to 0 just before the
-    distributed run and read just after.  Then phase 12 (c), phase 13 (c)
-    and phase 14 (d) in the same group (``adaptive``: the port's
+    distributed run and read just after.  Then phase 12 (c), phase 13 (c),
+    phase 14 (d) and phase 15 (e) in the same group (``adaptive``: the port's
     ``powersgd`` and ``error_feedback`` modules).  Returns {path:
     launches}."""
     import torch.distributed as tdist
@@ -1404,6 +1423,8 @@ def dist_phase(torch, mods, kernel_mods, cfg, compressors, CollectiveStats,
             out["orthogonalizers"] = dist_orth(torch, mods, kernel_mods, cfg,
                                                CollectiveStats, pdist, n_buckets,
                                                smi, batches)
+            out["bf16"] = dist_bf16(torch, mods, kernel_mods, cfg, CollectiveStats,
+                                    pdist, n_buckets, smi, batches)
         finally:
             tdist.destroy_process_group()
     return out
@@ -2826,55 +2847,76 @@ def orth_graph_phase(torch, orthogonalize, sets, rows):
                           "bound_ms": row["bound_ms"]}), flush=True)
 
 
+def wire_run(torch, mods, kernel_mods, cfg, batches, hyper, compressor, stats,
+             prepare=None):
+    """One step per batch of the full-width model at WORKERS workers under
+    ``hyper`` (and ``compressor``, ``None``: the hyperparameters' own),
+    from the state ``init_state`` draws from seed 0 on the card
+    (``prepare(ef)`` may rewrite it first), every launch count set to 0
+    just before the steps and read just after.  Returns losses, step ms,
+    launches, each step's collective records, the peak GiB above what was
+    allocated before the run, and the final parameters and state."""
+    train, tree, SimMesh, _ = mods
+    step, init = train.make_sim_train_step(cfg, SimMesh(WORKERS), hyper,
+                                           compressor=compressor, stats=stats)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params, ef = init(torch.Generator("cuda").manual_seed(0))
+    if prepare is not None:
+        ef = prepare(ef)
+    reset_all_launches(kernel_mods)
+    losses, ms, records = [], [], []
+    for batch in batches:
+        stats.reset()
+        t0 = time.perf_counter()
+        params, ef, metrics = step(params, ef, batch)
+        loss = metrics["lm_loss"].item()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        records.append(collective_records(stats))
+    launches = read_all_launches(kernel_mods)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    if not all(math.isfinite(v) for v in losses) or not all_finite(
+            torch, tree, params, ef.error, ef.momentum, ef.comp):
+        raise AssertionError(f"run on the {hyper.wire_dtype} wire under "
+                             f"{hyper.orthogonalizer}: non-finite losses "
+                             f"{losses} or state")
+    return losses, ms, launches, records, peak, params, ef
+
+
 def orth_llama_phase(torch, mods, kernel_mods, cfg, CollectiveStats, n_buckets,
                      psgd_run, smi):
     """(b): phase 6's full width, ORTH_STEPS steps under each of ORTHS
-    (``TrainHyper(orthogonalizer=…)``) from one initial state, launch counts
-    set to 0 just before each run and read just after.  Step ms, peak GiB
-    above what was allocated before the run, B1b/B2b launches (one a
-    bucket a step), collective records (2 reduces a step, Gram-Schmidt's
-    sizes), losses and the largest parameter difference from the
-    Gram-Schmidt run (printed, not held: another orthogonalizer gives
-    another basis of nearly the same span).  ``psgd_run`` holds phase 6's
-    median step ms and peak GiB.  Returns the launches by name."""
+    (``TrainHyper(orthogonalizer=…)``) from one initial state through
+    ``wire_run``.  Step ms, peak GiB above what was allocated before the
+    run, B1b/B2b launches (one a bucket a step), collective records (2
+    reduces a step, Gram-Schmidt's sizes), losses and the largest parameter
+    difference from the Gram-Schmidt run (printed, not held: another
+    orthogonalizer gives another basis of nearly the same span).
+    ``psgd_run`` holds phase 6's median step ms and peak GiB.  Returns the
+    launches by name."""
     train, tree, SimMesh, MarkovLM = mods
-    sim = SimMesh(WORKERS)
-    batches = llama_batches(torch, MarkovLM, cfg, sim, ORTH_STEPS)
+    batches = llama_batches(torch, MarkovLM, cfg, SimMesh(WORKERS), ORTH_STEPS)
     runs, first, problems = {}, None, []
     for name in ORTHS:
-        stats = CollectiveStats()
-        step, init = train.make_sim_train_step(
-            cfg, sim, train.TrainHyper(orthogonalizer=name), stats=stats)
-        base = torch.cuda.memory_allocated()
-        params, ef = init(torch.Generator("cuda").manual_seed(0))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_all_launches(kernel_mods)
-        rows = []
-        for i, batch in enumerate(batches):
-            stats.reset()
-            t0 = time.perf_counter()
-            params, ef, metrics = step(params, ef, batch)
-            loss = metrics["lm_loss"].item()
-            torch.cuda.synchronize()
-            rows.append({"lm_loss": loss, "step_ms": (time.perf_counter() - t0) * 1e3,
-                         "records": collective_records(stats)[:2]})
+        losses, ms, launches, records, peak, params, ef = wire_run(
+            torch, mods, kernel_mods, cfg, batches,
+            train.TrainHyper(orthogonalizer=name), None, CollectiveStats())
+        del ef
+        for i, (loss, t) in enumerate(zip(losses, ms)):
             print(f"orthogonalizer {name} step {i} lm_loss={loss:.6f} "
-                  f"step_ms={rows[-1]['step_ms']:.1f}", flush=True)
-        launches = read_all_launches(kernel_mods)
-        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
-        if not all_finite(torch, tree, params, ef.error, ef.momentum, ef.comp):
-            problems.append(f"{name}: non-finite state")
+                  f"step_ms={t:.1f}", flush=True)
         if first is None:
             first, diff = params, 0.0
         else:
             diff = max((a - b).abs().max().item()
                        for a, b in zip(tree.leaves(params), tree.leaves(first)))
-        runs[name] = {"losses": [r["lm_loss"] for r in rows],
-                      "step_ms": [r["step_ms"] for r in rows],
-                      "median_step_ms": statistics.median(r["step_ms"] for r in rows),
+        runs[name] = {"losses": losses, "step_ms": ms,
+                      "median_step_ms": statistics.median(ms),
                       "peak_gib_above_start": peak, "launches": launches,
-                      "records": [r["records"] for r in rows],
+                      "records": [r[:2] for r in records],
                       "max_abs_param_diff_vs_gram_schmidt": diff}
         want = {k: 0 for k in launches}
         want.update(lowrank_project=ORTH_STEPS * n_buckets,
@@ -2882,11 +2924,9 @@ def orth_llama_phase(torch, mods, kernel_mods, cfg, CollectiveStats, n_buckets,
         if launches != want:
             problems.append(f"{name}: launches {launches}, want {want}")
         if runs[name]["records"] != runs[ORTHS[0]]["records"] or any(
-                r["records"][0] != ["reduce", "reduce"] for r in rows):
+                r[0] != ["reduce", "reduce"] for r in runs[name]["records"]):
             problems.append(f"{name}: records {runs[name]['records']}")
-        if not all(math.isfinite(v) for v in runs[name]["losses"]):
-            problems.append(f"{name}: losses {runs[name]['losses']}")
-        del step, init, params, ef
+        del params
         torch.cuda.empty_cache()
     del first, batches
     torch.cuda.empty_cache()
@@ -2958,6 +2998,434 @@ def dist_orth(torch, mods, kernel_mods, cfg, CollectiveStats, pdist, n_buckets,
         problems.append(f"launches {launches}, want {want}")
     if problems:
         raise AssertionError(f"orthogonalizer dist: {problems}")
+    return launches
+
+
+# The bfloat16 cast wire and the α-β autotuner (phase 15).  (a) Phase 6's
+# full width over BF16_STEPS steps on the float32 wire and then on
+# ``TrainHyper(wire_dtype="bfloat16")`` from the same initial state: step
+# ms, peak, losses, 6 + 6 low-rank launches a step, the two reduce records
+# at itemsize 2 and half the float32 wire's bytes, the parameters' largest
+# distance from the float32 run.  At W = 2 the worker-order fold is one
+# bfloat16 add of two bfloat16 values, which is the float32 mean rounded
+# once.  (b) Top-K on the bfloat16 wire at the same width, BF16_TOPK_STEPS
+# steps: 1 reduce and 2 gathers a step (values at itemsize 2, int32
+# indices in their own chunk), no kernel launched; then one compress step
+# at two full-width leaves, its aggregate held bit for bit against every
+# worker's top-k values rounded to bfloat16, scattered at their indices and
+# averaged.  (c) ``autotune`` over the full-width tree (the paper's 10
+# Gbit/s NCCL cluster, half of rank 4's bits), host ms to plan, then
+# ``make_tuned_compressor`` + ``apply_plan`` and TUNED_STEPS steps: B1b and
+# B2b once a bucket a step at the plan's rank, the reduces' bits the
+# plan's ``wire_bits_per_step``.  (d) The benchmark LM: ``train_lm`` under
+# the tuned compressor card against CPU over TUNED_LM_STEPS steps, then
+# ``adaptive_rank_profile`` at TABLE_STEPS on the card and on the CPU under
+# phase 9's rules (the fixed-rank rows' eval_loss within LM_LOSS_RTOL,
+# every other column equal, the plan's included), the tuned row's
+# eval_loss within TUNED_ROW_RTOL.  (e) runs inside phase
+# 5's group (``dist_bf16``).
+BF16_STEPS, BF16_TOPK_STEPS, TUNED_STEPS, TUNED_LM_STEPS = 5, 3, 3, 5
+TUNED_BACKEND = "nccl_10gbit"
+# Card against CPU on the bfloat16 wire: a float32 difference of one ulp
+# before the cast can move an element to the neighbouring bfloat16, 2⁻⁸
+# relative, and a flipped Q element moves a whole row of the update.  On
+# the CPU alone, reduced Llama-3-8B at W = 2 from parameters moved by one
+# ulp ends phase 3's 3 steps 8.6e-5 apart (2,090 of 1,705,216 parameters
+# beyond 1e-5, none beyond 1e-4; the float32 wire: 2.4e-7).  So: losses
+# within 1e-4 relative (phase 3's rule), at most a share BF16_FLIP_SHARE of
+# the parameters beyond phase 3's 1e-4 and none beyond BF16_FLIP_ATOL.  The
+# tuned LM: parameters moved by one ulp move eval_loss 5.6e-6 relative
+# after 5 steps and 9.4e-5 after 10, so train_lm is held within
+# LM_LOSS_RTOL after 5 steps and the table's tuned row (10 steps) within
+# TUNED_ROW_RTOL, ten times that spread.  ``PYTHONPATH=src python
+# tests/test_torch_wire_bf16.py`` prints these one-ulp runs.
+BF16_FLIP_SHARE, BF16_FLIP_ATOL, TUNED_ROW_RTOL = 1e-3, 1e-3, 1e-3
+
+
+def check_bf16_parity(name, l_cpu, l_gpu, p_cpu, p_gpu, check="card_vs_cpu"):
+    """Phase 15's flip rule (above): losses, the count of parameters beyond
+    phase 3's 1e-4 and the largest difference."""
+    rel = max(abs(a - b) / abs(a) for a, b in zip(l_cpu, l_gpu))
+    diffs = [(a - b).abs() for a, b in zip(p_cpu, p_gpu)]
+    dparam = max(d.max().item() for d in diffs)
+    beyond = sum(int((d > 1e-4).sum()) for d in diffs)
+    total = sum(d.numel() for d in diffs)
+    print(json.dumps({"check": check, "path": name, "losses_cpu": l_cpu,
+                      "losses_card": l_gpu, "max_rel_loss_diff": rel,
+                      "max_abs_param_diff": dparam, "params_beyond_1e-4": beyond,
+                      "params": total}), flush=True)
+    if not (rel <= 1e-4 and beyond <= BF16_FLIP_SHARE * total
+            and dparam <= BF16_FLIP_ATOL):
+        raise AssertionError(
+            f"{name}: card and CPU disagree: loss rel {rel:.2e} (limit 1e-4), "
+            f"{beyond} of {total} params beyond 1e-4 (limit share "
+            f"{BF16_FLIP_SHARE}), max {dparam:.2e} (limit {BF16_FLIP_ATOL})")
+
+
+def bf16_llama_phase(torch, mods, kernel_mods, cfg, CollectiveStats, n_buckets,
+                     psgd_run, smi):
+    """(a): phase 6's full width on the float32 and the bfloat16 wire from
+    one initial state.  ``psgd_run`` holds phase 6's median step ms and
+    peak GiB.  Returns the bfloat16 run's launches."""
+    train, tree, SimMesh, MarkovLM = mods
+    batches = llama_batches(torch, MarkovLM, cfg, SimMesh(WORKERS), BF16_STEPS)
+    runs = {}
+    for wire in ("float32", "bfloat16"):
+        stats = CollectiveStats()
+        losses, ms, launches, records, peak, params, ef = wire_run(
+            torch, mods, kernel_mods, cfg, batches,
+            train.TrainHyper(wire_dtype=wire), None, stats)
+        del ef
+        runs[wire] = {"losses": losses, "ms": ms, "launches": launches,
+                      "records": records, "peak": peak, "params": params,
+                      "bytes": stats.bytes_per_collective()}
+        torch.cuda.empty_cache()
+    f32, bf = runs["float32"], runs["bfloat16"]
+    dist_max = max((a - b).abs().max().item() for a, b in zip(
+        tree.leaves(f32.pop("params")), tree.leaves(bf.pop("params"))))
+    torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(a) for a, b in zip(f32["losses"], bf["losses"]))
+    out = {"check": "bf16 llama", "card": smi, "steps": BF16_STEPS,
+           "workers": WORKERS, "phase6_median_step_ms": psgd_run["median_step_ms"],
+           "phase6_peak_gib": psgd_run["peak_gib"]}
+    for wire, r in runs.items():
+        out[wire] = {"step_ms": r["ms"], "median_step_ms": statistics.median(r["ms"]),
+                     "peak_gib": r["peak"], "losses": r["losses"],
+                     "records": r["records"][0], "bytes": r["bytes"],
+                     "launches": r["launches"]}
+    out.update(max_abs_param_diff_vs_float32=dist_max, max_rel_loss_diff=rel)
+    print(json.dumps(out), flush=True)
+    problems = []
+    want = {name: 0 for name in bf["launches"]}
+    want.update(lowrank_project=BF16_STEPS * n_buckets,
+                lowrank_backproject=BF16_STEPS * n_buckets)
+    for wire, r in runs.items():
+        if r["launches"] != want:
+            problems.append(f"{wire} launches {r['launches']}, want {want}")
+        kinds, sizes, itemsizes = r["records"][0][:3]
+        if r["records"] != [r["records"][0]] * BF16_STEPS or kinds != ["reduce"] * 2:
+            problems.append(f"{wire} records {r['records']}")
+    if bf["records"][0][2] != [2, 2] or bf["records"][0][1] != f32["records"][0][1]:
+        problems.append(f"bfloat16 records {bf['records'][0]} against float32 "
+                        f"{f32['records'][0]}")
+    if [2 * b for b in bf["bytes"]] != f32["bytes"]:
+        problems.append(f"bytes {bf['bytes']} are not half of {f32['bytes']}")
+    if not rel <= 1e-3:
+        problems.append(f"losses {rel:.2e} relative from the float32 wire's")
+    if problems:
+        raise AssertionError(f"bf16 llama: {problems}")
+    return bf["launches"]
+
+
+def bf16_topk_phase(torch, mods, kernel_mods, cfg, compressors, CollectiveStats,
+                    topk_run, smi):
+    """(b): Top-K on the bfloat16 wire at full width, then the aggregate of
+    one compress step at two full-width leaves against its definition.
+    ``topk_run`` holds phase 7's (int4 wire) median step ms and peak.
+    Returns the launches of the training run."""
+    train, tree, SimMesh, MarkovLM = mods
+    from repro_torch.core import matrixize
+
+    make = lambda: compressors.make_compressor("top_k", rank=RANK,
+                                               wire_dtype="bfloat16")
+    comp = make()
+    if comp.declared_budget() != (3, 1, 2):
+        raise AssertionError(f"top_k bfloat16 budget {comp.declared_budget()}")
+    batches = llama_batches(torch, MarkovLM, cfg, SimMesh(WORKERS), BF16_TOPK_STEPS)
+    stats = CollectiveStats()
+    losses, ms, launches, records, peak, params, ef = wire_run(
+        torch, mods, kernel_mods, cfg, batches, train.TrainHyper(), comp, stats)
+    del params, ef
+    torch.cuda.empty_cache()
+    problems = []
+    if launches != {name: 0 for name in launches}:
+        problems.append(f"launches {launches}")
+    for kinds, sizes, itemsizes, fanouts, overheads in records:
+        if kinds != ["reduce", "gather", "gather"] or itemsizes != [2, 2, 4]:
+            problems.append(f"records {kinds} {itemsizes}")
+    # one compress step at the embedding and an FFN leaf, W = 2
+    gen = torch.Generator("cuda").manual_seed(15)
+    shapes = {"embed": (cfg.vocab_size, cfg.d_model), "w_up": (cfg.d_model, cfg.d_ff)}
+    specs = {k: matrixize.MatrixSpec("matrix", 0) for k in shapes}
+    deltas = {k: torch.randn((WORKERS,) + s, generator=gen, device="cuda")
+              for k, s in shapes.items()}
+    step_stats = CollectiveStats()
+    t0 = time.perf_counter()
+    out = make().step(deltas, None, specs, SimMesh(WORKERS).ctx(stats=step_stats))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    for k, s in shapes.items():
+        b = min((s[0] + s[1]) * RANK, s[0] * s[1])
+        flat = deltas[k].reshape(WORKERS, -1)
+        want = torch.zeros_like(flat)
+        for w in range(WORKERS):
+            idx = torch.topk(flat[w].abs(), b, sorted=True).indices
+            want[w].scatter_(0, idx, flat[w][idx].to(torch.bfloat16).float())
+        agg = out.agg[k].reshape(-1)
+        if not torch.equal(agg, want.mean(0)):
+            problems.append(f"{k}: the aggregate is not the mean of the scattered "
+                            f"bfloat16 payloads "
+                            f"({int((agg != want.mean(0)).sum())} elements differ)")
+        del flat, want
+    del deltas, out
+    torch.cuda.empty_cache()
+    print(json.dumps({
+        "check": "bf16 top_k", "card": smi, "steps": BF16_TOPK_STEPS,
+        "step_ms": ms, "median_step_ms": statistics.median(ms), "peak_gib": peak,
+        "phase7_int4_median_step_ms": topk_run["median_step_ms"],
+        "phase7_int4_peak_gib": topk_run["peak_gib"], "losses": losses,
+        "records": records[0], "bytes": stats.bytes_per_collective(),
+        "launches": launches, "aggregate_check_leaves": {
+            k: list(s) for k, s in shapes.items()},
+        "aggregate_check_step_ms": step_ms,
+        "aggregate_check_records": collective_records(step_stats)}), flush=True)
+    if problems:
+        raise AssertionError(f"bf16 top_k: {problems}")
+    return launches
+
+
+def tuned_plan(model, autotune, powersgd, cfg, workers):
+    """The autotuner's plan for ``cfg``'s tree (meta shapes) at half of
+    rank 4's bits on TUNED_BACKEND, with the median host ms of 20 calls."""
+    shapes, specs = model.init(cfg, None, device="meta"), model.mspecs(cfg)
+    budget = powersgd.compressed_floats_total(shapes, specs, 4) * 32 // 2
+    hw = autotune.HardwareModel.from_backend(TUNED_BACKEND)
+    host = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        plan = autotune.autotune(shapes, specs, bits_budget=budget, workers=workers,
+                                 hw=hw)
+        host.append((time.perf_counter() - t0) * 1e3)
+    return plan, shapes, specs, budget, hw, statistics.median(host)
+
+
+def plan_summary(plan):
+    return {"bucket_ranks": "|".join(f"{d.count}x{d.n}x{d.m}:r{d.rank}"
+                                     for d in plan.decisions),
+            "wire_dtype": plan.wire_dtype, "max_chunk_bytes": plan.max_chunk_bytes,
+            "payload_floats": plan.payload_floats,
+            "wire_bits_per_step": plan.wire_bits_per_step,
+            "predicted_comm_ms": plan.predicted_comm_s * 1e3}
+
+
+def tuned_llama_phase(torch, mods, kernel_mods, cfg, pt, CollectiveStats, psgd_run,
+                      smi):
+    """(c): the plan over the full-width tree, then TUNED_STEPS steps of its
+    compressor with its ranks installed; the rank of every low-rank call is
+    read at the call.  ``pt`` holds the port's ``model``, ``autotune``,
+    ``powersgd``, ``ops`` and ``error_feedback``.  Returns the launches."""
+    train, tree = mods[0], mods[1]
+    plan, shapes, specs, budget, hw, host_ms = tuned_plan(
+        pt.model, pt.autotune, pt.powersgd, cfg, WORKERS)
+    comp = pt.autotune.make_tuned_compressor(plan)
+    batches = llama_batches(torch, mods[3], cfg, mods[2](WORKERS), TUNED_STEPS)
+    calls, stats = [], CollectiveStats()
+    spied = {}
+    for name in ("lowrank_project", "lowrank_backproject"):
+        spied[name] = getattr(pt.ops, name)
+
+        def spy(m, f, _name=name):
+            calls.append((_name, int(f.shape[-1])))
+            return spied[_name](m, f)
+        setattr(pt.ops, name, spy)
+    try:
+        losses, ms, launches, records, peak, params, ef = wire_run(
+            torch, mods, kernel_mods, cfg, batches, train.TrainHyper(), comp, stats,
+            prepare=lambda ef: pt.error_feedback.replace_comp(
+                ef, pt.autotune.apply_plan(plan, ef.comp, shapes, specs)))
+    finally:
+        for name, fn in spied.items():
+            setattr(pt.ops, name, fn)
+    factor_ranks = [None if q is None else q.shape[-1] for q in tree.leaves(ef.comp)]
+    del params, ef
+    torch.cuda.empty_cache()
+    ranks = [d.rank for d in plan.decisions]
+    recorded = pt.autotune.comm_time_from_stats(stats, WORKERS, hw)
+    print(json.dumps({
+        "check": "tuned llama", "card": smi, "backend_model": TUNED_BACKEND,
+        "bits_budget": budget, "plan": plan_summary(plan), "plan_host_ms": host_ms,
+        "steps": TUNED_STEPS, "step_ms": ms, "median_step_ms": statistics.median(ms),
+        "phase6_median_step_ms": psgd_run["median_step_ms"], "peak_gib": peak,
+        "losses": losses, "records": records[0],
+        "recorded_wire_bits": 16 * sum(records[0][1]),
+        "recorded_comm_ms_modeled": recorded * 1e3,
+        "ranks_per_call": calls[:2 * len(ranks)], "launches": launches}), flush=True)
+    problems = []
+    want = {name: 0 for name in launches}
+    want.update(lowrank_project=TUNED_STEPS * len(ranks),
+                lowrank_backproject=TUNED_STEPS * len(ranks))
+    if launches != want:
+        problems.append(f"launches {launches}, want {want}")
+    for name in ("lowrank_project", "lowrank_backproject"):
+        got = [r for n, r in calls if n == name]
+        if got != ranks * TUNED_STEPS:
+            problems.append(f"{name} at ranks {got}, the plan's {ranks}")
+    if factor_ranks != list(plan.leaf_ranks):
+        problems.append(f"factor ranks {factor_ranks}, the plan's {plan.leaf_ranks}")
+    for kinds, sizes, itemsizes, _, _ in records:
+        if kinds != ["reduce"] * 2 or itemsizes != [2, 2] or (
+                16 * sum(sizes) != plan.wire_bits_per_step):
+            problems.append(f"records {kinds} {sizes} {itemsizes}, want the plan's "
+                            f"{plan.wire_bits_per_step} bits at itemsize 2")
+    if plan.wire_dtype != "bfloat16":
+        problems.append(f"the plan's wire {plan.wire_dtype}")
+    if problems:
+        raise AssertionError(f"tuned llama: {problems}")
+    return launches
+
+
+def tuned_lm_phase(torch, bench, tables, pt, kernel_mods, lm_buckets, smi):
+    """(d): ``train_lm`` under the tuned compressor, card against CPU, then
+    ``adaptive_rank_profile`` on both.  Returns the launches of both card
+    runs."""
+    spec = bench.LMSpec(steps=TUNED_LM_STEPS)
+    plan, shapes, specs, _, _, host_ms = tuned_plan(
+        pt.model, pt.autotune, pt.powersgd, bench._make_cfg(spec), spec.workers)
+    transform = lambda cs: pt.autotune.apply_plan(plan, cs, shapes, specs)
+    res, launches = {}, {}
+    for dev in ("cuda", "cpu"):
+        reset_all_launches(kernel_mods)
+        res[dev] = bench.train_lm(pt.autotune.make_tuned_compressor(plan), spec,
+                                  device=dev, init_comp_transform=transform)
+        launches[dev] = read_all_launches(kernel_mods)
+    rel = abs(res["cuda"]["eval_loss"] - res["cpu"]["eval_loss"]) / abs(
+        res["cpu"]["eval_loss"])
+    table_spec = bench.LMSpec(steps=TABLE_STEPS)
+    rows, seconds = {}, {}
+    for dev in ("cuda", "cpu"):
+        reset_all_launches(kernel_mods)
+        t0 = time.perf_counter()
+        rows[dev] = tables.adaptive_rank_profile(table_spec, device=dev)
+        seconds[dev] = time.perf_counter() - t0
+        launches[f"table {dev}"] = read_all_launches(kernel_mods)
+    print(json.dumps({
+        "check": "tuned bench_lm", "card": smi, "plan": plan_summary(plan),
+        "plan_host_ms": host_ms, "steps": TUNED_LM_STEPS,
+        "median_step_ms_card": statistics.median(res["cuda"]["step_ms"]),
+        "step_ms_card": res["cuda"]["step_ms"],
+        "eval_loss_card": res["cuda"]["eval_loss"],
+        "eval_loss_cpu": res["cpu"]["eval_loss"], "rel_eval_loss_diff": rel,
+        "compressed_floats_total": res["cuda"]["compressed_floats_total"],
+        "launches": launches["cuda"]}), flush=True)
+    for r_card, r_cpu in zip(rows["cuda"], rows["cpu"]):
+        print(json.dumps({"check": "adaptive_rank_profile", "steps": TABLE_STEPS,
+                          "card": r_card, "cpu_eval_loss": r_cpu["eval_loss"]}),
+              flush=True)
+    print(json.dumps({"check": "adaptive_rank_profile seconds", **seconds,
+                      "launches": launches["table cuda"]}), flush=True)
+    problems = []
+    n = lm_buckets
+    want = {name: 0 for name in launches["cuda"]}
+    want.update(lowrank_project=(TUNED_LM_STEPS + 1) * n,
+                lowrank_backproject=(TUNED_LM_STEPS + 1) * n)
+    if launches["cuda"] != want:
+        problems.append(f"train_lm launches {launches['cuda']}, want {want}")
+    if any(launches["cpu"].values()) or any(launches["table cpu"].values()):
+        problems.append("a kernel launched on the CPU runs")
+    runs = len(rows["cuda"])
+    want = dict(want, lowrank_project=runs * (TABLE_STEPS + 1) * n,
+                lowrank_backproject=runs * (TABLE_STEPS + 1) * n)
+    if launches["table cuda"] != want:
+        problems.append(f"table launches {launches['table cuda']}, want {want}")
+    if not rel <= LM_LOSS_RTOL:
+        problems.append(f"train_lm eval_loss card against CPU {rel:.2e}")
+    for k in ("compressed_floats_total", "bits_per_worker_per_step"):
+        if res["cuda"][k] != res["cpu"][k]:
+            problems.append(f"train_lm {k} {res['cuda'][k]} / {res['cpu'][k]}")
+    if res["cuda"]["compressed_floats_total"] != TUNED_LM_STEPS * plan.payload_floats:
+        problems.append("train_lm did not count the plan's payload")
+    if rows_without(rows["cuda"], "eval_loss") != rows_without(rows["cpu"], "eval_loss"):
+        problems.append("adaptive_rank_profile columns differ between card and CPU")
+    for r_card, r_cpu in zip(rows["cuda"], rows["cpu"]):
+        loss = r_card["eval_loss"]
+        if not (math.isfinite(loss) and 0 < loss < math.log(table_spec.vocab)):
+            problems.append(f"{r_card['schedule']}: eval_loss {loss}")
+        if r_card["schedule"].startswith("fixed") and not abs(
+                loss - r_cpu["eval_loss"]) <= LM_LOSS_RTOL * abs(r_cpu["eval_loss"]) + 1e-4:
+            problems.append(f"{r_card['schedule']}: eval_loss {loss} against "
+                            f"{r_cpu['eval_loss']}")
+    tuned = rows["cuda"][-1]
+    if not abs(tuned["eval_loss"] - rows["cpu"][-1]["eval_loss"]) <= (
+            TUNED_ROW_RTOL * abs(rows["cpu"][-1]["eval_loss"])):
+        problems.append(f"the tuned row's eval_loss {tuned['eval_loss']} against "
+                        f"{rows['cpu'][-1]['eval_loss']}")
+    if (tuned["bucket_ranks"], tuned["wire_dtype"]) != (
+            "|".join(f"{d.n}x{d.m}:r{d.rank}" for d in plan.decisions), "bfloat16"):
+        problems.append(f"the table's plan {tuned}")
+    if problems:
+        raise AssertionError(f"tuned bench_lm: {problems}")
+    return {"train_lm": launches["cuda"], "adaptive_rank_profile": launches["table cuda"]}
+
+
+def bf16_small_phase(torch, pmods, compressors, pdist):
+    """The simulated bfloat16 reduce at W = 2 on the card: the worker-order
+    fold is one bfloat16 add, so it equals the float32 mean rounded once
+    (bit for bit, at a million elements).  Then reduced Llama-3-8B at W = 2
+    on the bfloat16 wire, card against CPU under the flip rule."""
+    x = torch.randn(2, 1 << 20, device="cuda").to(torch.bfloat16)
+    fold = pdist.SimBackend(2).pmean(x)
+    once = x.float().mean(0).to(torch.bfloat16)
+    print(json.dumps({"check": "bf16 fold at W = 2", "elements": x.shape[1],
+                      "equal_to_float32_mean_rounded_once": bool(torch.equal(fold, once))}),
+          flush=True)
+    if not torch.equal(fold, once):
+        raise AssertionError("the bfloat16 fold of 2 workers is not the float32 "
+                             "mean rounded once")
+    parity_phase(torch, pmods, "powersgd bf16",
+                 lambda: compressors.make_compressor("powersgd", rank=RANK,
+                                                     wire_dtype="bfloat16"),
+                 check_bf16_parity)
+
+
+def dist_bf16(torch, mods, kernel_mods, cfg, CollectiveStats, pdist, n_buckets,
+              smi, batches):
+    """Phase 15 (e), inside phase 5's group: DIST_STEPS PowerSGD steps of
+    ``make_train_step`` on the bfloat16 wire against ``make_sim_train_step``
+    on ``SimMesh(1)``: bit for bit (one worker needs no sum: NCCL's
+    all-reduce of one rank and the fold of one worker both return the
+    buffer).  Records at itemsize 2 as the simulated step's, 3
+    ``all_reduce`` calls a step, B1b and B2b once a bucket a step; launch
+    counts and calls set to 0 just before the distributed run and read just
+    after.  Returns the launches."""
+    tree = mods[1]
+    n = len(batches)
+    hyper = mods[0].TrainHyper(wire_dtype="bfloat16")
+    sim_stats, stats = CollectiveStats(), CollectiveStats()
+    l_sim, ms_sim, _, p_sim, _ = dist_run(torch, mods, cfg, "sim", None, sim_stats,
+                                          batches, hyper)
+    torch.cuda.empty_cache()
+    reset_all_launches(kernel_mods)
+    pdist.reset_calls()
+    l_dist, ms_dist, peak_dist, p_dist, _ = dist_run(torch, mods, cfg, "dist", None,
+                                                     stats, batches, hyper)
+    launches = read_all_launches(kernel_mods)
+    real_calls = dict(pdist.CALLS)
+    p_sim, p_dist = tree.leaves(p_sim), tree.leaves(p_dist)
+    max_diff = max((a - b).abs().max().item() for a, b in zip(p_sim, p_dist))
+    bit_equal = l_sim == l_dist and max_diff == 0.0
+    del p_sim, p_dist
+    torch.cuda.empty_cache()
+    print(json.dumps({
+        "check": "bf16 dist", "card": smi, "wire_dtype": "bfloat16", "steps": n,
+        "losses_dist": l_dist, "losses_sim": l_sim, "bit_equal": bit_equal,
+        "max_abs_param_diff": max_diff, "step_ms_dist": ms_dist,
+        "step_ms_sim": ms_sim, "peak_gib_dist": peak_dist,
+        "records": collective_records(stats)[:3], "dist_calls": real_calls,
+        "launches": launches}), flush=True)
+    problems = []
+    if not bit_equal:
+        problems.append(f"not bit-equal to SimMesh(1) (params {max_diff:.2e})")
+    if collective_records(stats) != collective_records(sim_stats) or (
+            stats.kinds != ["reduce"] * 2 * n) or set(stats.itemsizes) != {2}:
+        problems.append(f"records {stats.kinds} {stats.itemsizes}")
+    if real_calls != {"all_reduce": 3 * n, "all_gather": 0}:
+        problems.append(f"torch.distributed calls {real_calls}")
+    want = {name: 0 for name in launches}
+    want.update(lowrank_project=n * n_buckets, lowrank_backproject=n * n_buckets)
+    if launches != want:
+        problems.append(f"launches {launches}, want {want}")
+    if problems:
+        raise AssertionError(f"bf16 dist: {problems}")
     return launches
 
 
@@ -3036,7 +3504,8 @@ def main() -> None:
     from repro_torch.bench import tables
     from repro_torch.configs.base import get_config
     from repro_torch.configs import llama3_8b
-    from repro_torch.core import compressors, matrixize, orthogonalize, powersgd
+    from repro_torch.core import (autotune, compressors, matrixize, orthogonalize,
+                                  powersgd)
     from repro_torch.core import dist as pdist
     from repro_torch.core.dist import CollectiveStats
     from repro_torch.core.simmesh import SimMesh
@@ -3303,6 +3772,26 @@ def main() -> None:
     del orth_sets
     print(f"orthogonalizers: {time.perf_counter() - t_orth:.1f} s (and (d) in "
           f"phase 5)")
+    torch.cuda.empty_cache()
+
+    # -- 15. the bfloat16 wire and the autotuner ------------------------------
+    t_tuned = time.perf_counter()
+    pt = types.SimpleNamespace(model=model, autotune=autotune, powersgd=powersgd,
+                               ops=ops, error_feedback=error_feedback)
+    bf16_small_phase(torch, pmods, compressors, pdist)
+    tuned_launches = {
+        "bf16 llama powersgd": bf16_llama_phase(
+            torch, tmods, kernel_mods, cfg, CollectiveStats, len(buckets), psgd_run,
+            smi),
+        "bf16 llama top_k": bf16_topk_phase(
+            torch, tmods, kernel_mods, cfg, compressors, CollectiveStats, topk_run,
+            smi),
+        "tuned llama": tuned_llama_phase(torch, tmods, kernel_mods, cfg, pt,
+                                         CollectiveStats, psgd_run, smi)}
+    tuned_launches.update({f"tuned bench_lm {k}": v for k, v in tuned_lm_phase(
+        torch, bench, tables, pt, kernel_mods, len(lm_buckets), smi).items()})
+    print(f"bf16 and tuned: {time.perf_counter() - t_tuned:.1f} s (and (e) in "
+          f"phase 5)")
 
     # launches of each kernel on every path this run drove
     paths = {"llama powersgd": psgd, "llama top_k_int4": topk,
@@ -3315,7 +3804,8 @@ def main() -> None:
              **{f"weighted {k}": v for k, v in weighted_launches.items()},
              **{f"warmup {k}": v for k, v in warmup_launches.items()},
              **{f"adaptive {k}": v for k, v in adaptive_launches.items()},
-             **{f"orthogonalizers llama {k}": v for k, v in orth_launches.items()}}
+             **{f"orthogonalizers llama {k}": v for k, v in orth_launches.items()},
+             **tuned_launches}
     by_path = lambda kernel: {p: v[kernel] for p, v in paths.items() if v[kernel]}
 
     summary = []

@@ -19,10 +19,12 @@ JAX package's ``fold_in(key(123), step)``).
 
 It runs on the CUDA card unless ``device`` says otherwise.  A
 :class:`~repro_torch.core.powersgd.RankController` moves the rank between
-steps.  Not ported yet: ``init_comp_transform`` (the autotuner's plans,
-ROADMAP queue A, item 9).
+steps; ``init_comp_transform`` rewrites the initial compressor state (how
+:func:`repro_torch.core.autotune.apply_plan` installs a plan's per-bucket
+ranks).
 
-The α-β constants (:data:`BW`, :data:`LATENCY`) model the paper's cluster
+The α-β constants (:data:`BW`, :data:`LATENCY`, read from
+:data:`repro_torch.core.autotune.BACKENDS`) model the paper's cluster
 (Appendix B: 10 Gbit/s Ethernet, NCCL-like and GLOO-like backends); they
 are not figures of any card the port runs on.
 """
@@ -38,7 +40,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.configs.base import LayerSlot, ModelConfig
-from repro_torch.core import error_feedback, matrixize
+from repro_torch.core import autotune, error_feedback, matrixize
 from repro_torch.core.compressors import Compressor
 from repro_torch.core.dist import SINGLE
 from repro_torch.core.error_feedback import EFState
@@ -173,6 +175,11 @@ def train_lm(compressor: Compressor, spec: LMSpec = LMSpec(),
     every training step's collectives.  ``return_params=True`` returns
     ``(result, params)``, the trained parameters on ``device``.
 
+    ``init_comp_transform(comp_state) -> comp_state`` rewrites the initial
+    compressor state (on the CPU, before training; e.g. ``lambda cs:
+    autotune.apply_plan(plan, cs, shapes, specs)``); each step's payload
+    is then counted at every leaf's own rank.
+
     ``controller`` (a :class:`~repro_torch.core.powersgd.RankController`)
     is asked before each step, with the previous step's residual ratio
     averaged over the workers (0 where the compressor reports none, None
@@ -180,10 +187,6 @@ def train_lm(compressor: Compressor, spec: LMSpec = LMSpec(),
     and the payload recounted.  The result then also holds
     ``rank_history`` and ``final_rank``.
     """
-    if init_comp_transform is not None:
-        raise NotImplementedError(
-            "init_comp_transform (autotuner plans) is not ported yet (ROADMAP "
-            "queue A, item 9)")
     dev = resolve_device(device)
     cfg = _make_cfg(spec)
     specs = model.mspecs(cfg)
@@ -192,6 +195,8 @@ def train_lm(compressor: Compressor, spec: LMSpec = LMSpec(),
         params = model.init(cfg, gen, device="cpu")
     if comp_state is None:
         comp_state = compressor.init(_to(params, "cpu"), specs, gen)
+    if init_comp_transform is not None:
+        comp_state = init_comp_transform(comp_state)
     params = _to(params, dev)
     sim = SimMesh(spec.workers)
     ctx = sim.ctx(stats=stats)
@@ -264,8 +269,8 @@ def train_lm(compressor: Compressor, spec: LMSpec = LMSpec(),
 # communication model (the paper's Appendix B cluster: 10 Gbit/s Ethernet)
 # ---------------------------------------------------------------------------
 
-BW = {"nccl_10gbit": 10e9 / 8, "gloo_10gbit": 2.5e9 / 8}
-LATENCY = {"nccl_10gbit": 30e-6, "gloo_10gbit": 150e-6}
+BW = {name: bw for name, (_, bw) in autotune.BACKENDS.items()}
+LATENCY = {name: alpha for name, (alpha, _) in autotune.BACKENDS.items()}
 
 
 def comm_time(bytes_per_worker: float, workers: int, allreduce: bool,

@@ -77,9 +77,11 @@ def main(argv=None) -> None:
                                                   device=dev),
         "fig3_scaling": lambda: tables.fig3_scaling(params_small, specs_small,
                                                     device=dev),
+        "adaptive_rank_profile": lambda: tables.adaptive_rank_profile(
+            spec, device=dev),
         **{name: _unported(name, "18") for name in (
-            "adaptive_rank_profile", "resume_overhead", "comm_profile",
-            "sync_mode_profile", "zoo_transport_profile", "overlap_profile")},
+            "resume_overhead", "comm_profile", "sync_mode_profile",
+            "zoo_transport_profile", "overlap_profile")},
         "appendixD_transformer": lambda: tables.appendixD_transformer(
             spec, device=dev),
     }

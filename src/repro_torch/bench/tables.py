@@ -1,6 +1,7 @@
-"""One driver per paper table and figure (port of Tables 1–7, Fig. 3 and
-Appendix D of the JAX package's ``benchmarks/tables.py``): the benchmark
-LM, and for Table 7 the paper's LSTM scaled down.
+"""One driver per paper table and figure (port of Tables 1–7, Fig. 3,
+Appendix D and ``adaptive_rank_profile`` of the JAX package's
+``benchmarks/tables.py``): the benchmark LM, and for Table 7 the paper's
+LSTM scaled down.
 
 Each driver returns a list of row dicts with the JAX package's keys, in
 its order.  The training drivers take an :class:`~repro_torch.bench.common.
@@ -32,8 +33,8 @@ from repro_torch.bench.common import (Q_CHUNK, LMSpec, _make_cfg, _to,
                                       bytes_per_epoch_mb, comm_time, eval_loss,
                                       eval_set, lm_data, measure_coding_time,
                                       probe_bits, train_lm)
-from repro_torch.core import error_feedback
-from repro_torch.core.compressors import make_compressor
+from repro_torch.core import autotune, error_feedback, powersgd
+from repro_torch.core.compressors import PowerSGDCompressor, make_compressor
 from repro_torch.data.synthetic import MarkovLM
 from repro_torch.launch.train import grad_with_aux, local_grads, resolve_device
 from repro_torch.models import lstm, model
@@ -250,4 +251,76 @@ def appendixD_transformer(spec: LMSpec, *, device=None) -> list:
     for r in (4, 8, 16, 32):
         rows.append(_fmt(train_lm(make_compressor("powersgd", rank=r), spec,
                                   device=device), r))
+    return rows
+
+
+def adaptive_rank_profile(spec: LMSpec, *, device=None) -> list:
+    """Beyond the paper: adaptive rank schedules against fixed ranks on the
+    benchmark LM.  (a) Fixed ranks 1, 2 and 4; (b) the growth staircase
+    1 → 2 → 4 and (c) the decay staircase 4 → 2 → 1, switching at a third
+    and two thirds of the run; (d) the residual-energy schedule (ranks 1–8
+    from 4, decided every eighth of the run); (e) the α-β autotuner's
+    per-bucket ranks under half of rank 4's bits, priced on the paper's
+    10 Gbit/s NCCL cluster (:func:`repro_torch.core.autotune.autotune`
+    over the LM's parameter shapes, installed by ``apply_plan``).  Rows
+    give ``eval_loss``, the cumulative compressed floats in millions, the
+    rank history (``rank@step|…``), the savings against fixed rank 4 and,
+    for (e), the plan's bucket ranks (``n x m:r…``), wire dtype and
+    modeled exchange ms."""
+    s = spec.steps
+
+    def row(label, result, extra=None):
+        r = {
+            "schedule": label,
+            "eval_loss": round(result["eval_loss"], 4),
+            "compressed_mfloats_total":
+                round(result["compressed_floats_total"] / 1e6, 4),
+        }
+        if "rank_history" in result:
+            r["rank_history"] = "|".join(
+                f"{rk}@{st}" for st, rk in result["rank_history"])
+        r.update(extra or {})
+        return r
+
+    rows = []
+    fixed = {}
+    for r in (1, 2, 4):
+        res = train_lm(make_compressor("powersgd", rank=r), spec, device=device)
+        fixed[r] = res
+        rows.append(row(f"fixed_rank{r}", res))
+    base_floats = fixed[4]["compressed_floats_total"]
+
+    def savings(res):
+        return {"savings_vs_fixed_rank4": round(
+            1 - res["compressed_floats_total"] / base_floats, 4)}
+
+    for label, stair in (
+            ("staircase_up_1_2_4", powersgd.StaircaseRank(
+                milestones=((0, 1), (s // 3, 2), (2 * s // 3, 4)))),
+            ("staircase_down_4_2_1", powersgd.StaircaseRank(
+                milestones=((0, 4), (s // 3, 2), (2 * s // 3, 1))))):
+        comp = PowerSGDCompressor(rank_schedule=stair)
+        res = train_lm(comp, spec, controller=comp.controller(), device=device)
+        rows.append(row(label, res, savings(res)))
+
+    comp = PowerSGDCompressor(
+        rank_schedule=f"residual:min=1,max=8,init=4,every={max(s // 8, 1)}")
+    res = train_lm(comp, spec, controller=comp.controller(), device=device)
+    rows.append(row("residual_energy", res, savings(res)))
+
+    cfg = _make_cfg(spec)
+    shapes, mspecs = model.init(cfg, None, device="meta"), model.mspecs(cfg)
+    comp4 = powersgd.compressed_floats_total(shapes, mspecs, 4)
+    plan = autotune.autotune(
+        shapes, mspecs, bits_budget=comp4 * 32 // 2, workers=spec.workers,
+        hw=autotune.HardwareModel.from_backend("nccl_10gbit"))
+    comp = autotune.make_tuned_compressor(plan)
+    res = train_lm(comp, spec, device=device, init_comp_transform=lambda cs:
+                   autotune.apply_plan(plan, cs, shapes, mspecs))
+    rows.append(row("autotuned_budget50", res, {
+        **savings(res),
+        "bucket_ranks": "|".join(
+            f"{d.n}x{d.m}:r{d.rank}" for d in plan.decisions),
+        "wire_dtype": plan.wire_dtype,
+        "predicted_comm_ms": round(plan.predicted_comm_s * 1e3, 3)}))
     return rows

@@ -94,18 +94,35 @@ class CollectiveStats:
         return out
 
 
+def worker_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the leading worker dim of a stacked ``(W, ...)`` tensor, as
+    the JAX package's ``lax.psum`` over a ``vmap``'d worker axis sums it.
+    A bfloat16 tensor is folded in worker order, ``((x₀ + x₁) + x₂) + …``,
+    rounded to bfloat16 after every add (``x.sum(0)`` would accumulate in
+    float32 and round once, which differs from the reference at W ≥ 3);
+    the fold starts from a copy, so ``x`` is never written.  Other dtypes
+    take ``x.sum(0)``."""
+    if x.dtype != torch.bfloat16:
+        return x.sum(dim=0)
+    acc = x[0].clone()
+    for xi in x[1:]:
+        acc += xi
+    return acc
+
+
 def weighted_mean(x: torch.Tensor, w: torch.Tensor, sum_fn,
                   in_place: bool = False) -> torch.Tensor:
     """``Σ w·x / Σ w`` with a guarded denominator, ``sum_fn`` the sum over
-    the workers (``v.sum(0)`` over a stacked worker dim, ``w`` viewed as
-    ``(W, 1, …, 1)``).  The single home of the weighted-aggregation
+    the workers (:func:`worker_sum` over a stacked worker dim, ``w`` viewed
+    as ``(W, 1, …, 1)``).  The single home of the weighted-aggregation
     semantics: :meth:`SimBackend.pmean` and the engine's receiver-side
     combine (:meth:`repro_torch.core.engine.Transport.combine_mean`) both
     call it, so the two are bit-equal.  If every weight is 0 the result is
-    exactly zero, not NaN; the division happens in the weight's dtype
-    (float32).  ``in_place=True`` scales ``x`` itself (the caller's
-    buffer is consumed) instead of a copy: the same values, and no second
-    ``x``-sized buffer."""
+    exactly zero, not NaN; the numerator is summed in ``x``'s dtype (a
+    bfloat16 wire folds it in bfloat16) and the division happens in the
+    weight's dtype (float32).  ``in_place=True`` scales ``x`` itself (the
+    caller's buffer is consumed) instead of a copy: the same values, and no
+    second ``x``-sized buffer."""
     total = sum_fn(w)
     wx = w.to(x.dtype)
     numer = sum_fn(x.mul_(wx) if in_place else x * wx)
@@ -123,8 +140,7 @@ def stacked_weighted_mean(x: torch.Tensor, weights: torch.Tensor,
     """:func:`weighted_mean` over the leading worker dim of a stacked
     ``(W, ...)`` tensor, ``weights`` a ``(W,)`` vector: what a weighted
     :meth:`SimBackend.pmean` and the engine's weighted combine compute."""
-    return weighted_mean(x, _per_worker_view(weights, x),
-                         lambda v: v.sum(dim=0), in_place)
+    return weighted_mean(x, _per_worker_view(weights, x), worker_sum, in_place)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -138,6 +154,11 @@ class SimBackend:
     ``pmean`` is then ``Σ wᵢxᵢ / Σ wᵢ`` (exactly zero when every worker is
     dropped) and ``psum`` is ``Σ wᵢxᵢ``; ``all_gather`` is unweighted (the
     weights travel beside the payloads, :meth:`MeshCtx.gather_data_weight`).
+
+    Sums run in the buffer's dtype in the JAX package's order
+    (:func:`worker_sum`): a bfloat16 wire buffer is folded over the workers
+    in bfloat16 and the unweighted mean divides it by W in bfloat16, bit
+    for bit as the reference's ``lax.pmean``.
     """
 
     workers: int
@@ -148,14 +169,16 @@ class SimBackend:
         return (self.workers,)
 
     def pmean(self, x: torch.Tensor) -> torch.Tensor:
-        if self.weights is None:
-            return x.mean(dim=0)
-        return stacked_weighted_mean(x, self.weights)
+        if self.weights is not None:
+            return stacked_weighted_mean(x, self.weights)
+        if x.dtype == torch.bfloat16:
+            return worker_sum(x).div_(self.workers)
+        return x.mean(dim=0)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         if self.weights is None:
-            return x.sum(dim=0)
-        return (x * _per_worker_view(self.weights, x).to(x.dtype)).sum(dim=0)
+            return worker_sum(x)
+        return worker_sum(x * _per_worker_view(self.weights, x).to(x.dtype))
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """The stacked ``(W, ...)`` buffer already holds every worker's
@@ -209,7 +232,12 @@ class DistBackend:
 
     def pmean(self, x: torch.Tensor) -> torch.Tensor:
         """Mean over the group: a sum all-reduce on a copy (``x`` may be a
-        view of a caller's tensor), then a divide (gloo has no average)."""
+        view of a caller's tensor), then a divide (gloo has no average), in
+        ``x``'s dtype.  A bfloat16 wire buffer is summed in the library's
+        order (NCCL's or gloo's), not in the JAX package's worker-order
+        fold (:func:`worker_sum`), so across processes the bfloat16 mean
+        agrees with the reference's within a few bfloat16 roundings, not
+        bit for bit; the divide runs in bfloat16 as the reference's."""
         return self.psum(x).div_(self.workers)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:

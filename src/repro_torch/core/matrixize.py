@@ -9,9 +9,9 @@
 Both planners are pure Python over shapes and return the same plans as the
 JAX package's, entry for entry.  Tensors a simulated data-parallel step
 carries per worker have leading worker dims (``lead``) in front of the
-shapes the plans describe.  Wire policies ``"auto"``, ``"float32"``,
-``"int8"`` and ``"int4"`` are ported; ``"bfloat16"`` raises
-``NotImplementedError``.
+shapes the plans describe.  Every wire policy of the JAX package is
+ported: ``"auto"``, the casts ``"float32"`` and ``"bfloat16"``, and the
+quantized ``"int8"`` and ``"int4"``.
 """
 
 from __future__ import annotations
@@ -190,7 +190,6 @@ def unpack_entry(stacked: torch.Tensor, entry: BucketEntry, rows: int,
 # ---------------------------------------------------------------------------
 
 WIRE_DTYPES = ("auto", "float32", "bfloat16", "int8", "int4")
-PORTED_WIRE_DTYPES = ("auto", "float32", "int8", "int4")
 QUANT_WIRE_DTYPES = ("int8", "int4")
 QUANT_QMAX = {"int8": 127, "int4": 7}
 _QUANT_ITEMSIZE = {"int8": 1.0, "int4": 0.5}   # wire bytes per element
@@ -261,10 +260,6 @@ def check_wire_dtype(wire_dtype: str) -> None:
     if wire_dtype not in WIRE_DTYPES:
         raise ValueError(
             f"unknown wire_dtype {wire_dtype!r}; use one of {WIRE_DTYPES}")
-    if wire_dtype not in PORTED_WIRE_DTYPES:
-        raise NotImplementedError(
-            f"wire_dtype={wire_dtype!r} is not ported yet (ROADMAP queue A, "
-            f"item 11: cast wire formats)")
 
 
 def plan_flat(parts, wire_dtype: str = "auto",
@@ -274,7 +269,8 @@ def plan_flat(parts, wire_dtype: str = "auto",
     ``parts`` need only ``.shape`` and ``.dtype``; their first ``lead`` dims
     are worker dims and are not part of the plan.  ``"auto"`` keeps each
     part's dtype (same-dtype parts share a chunk, in input order);
-    ``"float32"`` casts every float part into one chunk; ``"int8"``/
+    ``"float32"`` and ``"bfloat16"`` cast every float part into one chunk
+    (round to nearest even, as ``astype`` casts); ``"int8"``/
     ``"int4"`` put every float part into one quantized chunk.  Under every
     wire, integer parts (top-k indices) keep exact chunks of their own
     dtype, as ``"auto"`` keeps them.  ``max_chunk_bytes`` starts a fresh
@@ -284,12 +280,14 @@ def plan_flat(parts, wire_dtype: str = "auto",
 
     Declared divergence from ``repro.core.matrixize.plan_flat``: the JAX
     package casts integer parts into the float chunk under ``"float32"``
-    (and ``"bfloat16"``).  float32 holds integers exactly only up to 2²⁴,
-    so a top-k index of a larger leaf rounds, and the aggregate scatters
-    its value to the wrong coordinate while error feedback subtracts the
-    correctly placed local reconstruction.  Here the indices keep their
-    int32 chunk, which costs Top-K one more gather per step on that wire:
-    budget (3, 1, 2) where the reference declares (2, 1, 1).
+    and ``"bfloat16"``.  float32 holds integers exactly only up to 2²⁴,
+    bfloat16 only up to 2⁸ (index 257 comes back as 256), so a top-k index
+    of a larger leaf rounds, and the aggregate scatters its value to the
+    wrong coordinate while error feedback subtracts the correctly placed
+    local reconstruction.  Here the indices keep their int32 chunk under
+    both casts, which costs Top-K (and Sign+Norm, whose signs are int8)
+    one more gather per step on those wires: budget (3, 1, 2) where the
+    reference declares (2, 1, 1).
     """
     check_wire_dtype(wire_dtype)
     quant = wire_dtype if wire_dtype in QUANT_WIRE_DTYPES else None

@@ -35,7 +35,7 @@ from repro.data.synthetic import MarkovLM as JMarkovLM
 from repro.models import model as jmodel
 from repro_torch import bridge, tree
 from repro_torch.bench import common as bench
-from repro_torch.core import compressors, dist, matrixize as mz
+from repro_torch.core import compressors, dist, matrixize as mz, powersgd
 from repro_torch.core.dist import CollectiveStats
 from repro_torch.core.simmesh import SimMesh
 from repro_torch.data.synthetic import MarkovLM
@@ -249,13 +249,30 @@ def test_train_lm_matches_reference(name, steps, rtol):
 
 
 def test_train_lm_unported_options_raise():
-    """``init_comp_transform`` (ROADMAP queue A, item 9) still raises; the
-    controller (item 8) is ported and held against the reference in
+    """Every option is ported now (the name is kept).
+    ``init_comp_transform`` (ROADMAP queue A, item 9) rewrites the initial
+    compressor state and the payload is counted at the rewritten ranks
+    (``tests/test_torch_autotune.py`` holds a tuned plan against the
+    reference); the controller (item 8) is held in
     ``tests/test_torch_rank.py``."""
-    comp = compressors.make_compressor("identity")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        bench.train_lm(comp, bench.LMSpec(steps=1), device="cpu",
-                       init_comp_transform=lambda s: s)
+    seen = []
+
+    def to_rank1(state):
+        seen.append([None if q is None else q.shape[-1] for q in tree.leaves(state)])
+        return powersgd.transition_state(state, 1)
+
+    spec = bench.LMSpec(steps=2)
+    comp = compressors.make_compressor("powersgd", rank=2)
+    res = bench.train_lm(comp, spec, device="cpu", init_comp_transform=to_rank1)
+    assert {r for r in seen[0] if r is not None} == {2}
+    cfg = bench._make_cfg(spec)
+    shapes = model.init(cfg, None, device="meta")
+    specs, state = model.mspecs(cfg), comp.init(shapes, model.mspecs(cfg))
+    assert res["compressed_floats_total"] == 2 * bench.payload_floats(
+        shapes, specs, powersgd.transition_state(state, 1))[0]
+    # the bits probe steps a fresh state, at the compressor's rank
+    assert res["bits_per_worker_per_step"] == 32 * sum(
+        bench.payload_floats(shapes, specs, state))
 
 
 def test_train_lm_returns_params_and_leaves_inputs_alone():

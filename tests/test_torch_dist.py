@@ -5,9 +5,11 @@ one worker each, started once for the whole file.
   :class:`~repro_torch.core.dist.SimBackend` on the same inputs (rank i's
   input is row i of the simulation's stacked input): ``pmean_data``,
   ``pmean_flat`` and ``allgather_flat`` on the ``auto``, ``float32``,
-  ``int8`` and ``int4`` wires.  Reduces within 1e-6 (gloo sums in another
-  order than ``mean``), gathers and quantized payloads bit-equal,
-  ``CollectiveStats`` records equal.
+  ``bfloat16``, ``int8`` and ``int4`` wires.  Reduces within 1e-6 (gloo
+  sums in another order than ``mean``; on the bfloat16 wire within
+  ``bf16_reduce_tol``: gloo's order against the simulation's worker-order
+  fold), gathers and quantized payloads bit-equal, ``CollectiveStats``
+  records equal.
 * (b) ``make_train_step`` at W = 4 against the reference's
   ``repro.launch.train.make_sim_train_step`` at W = 4, from the same
   parameters and Q factors on the same batches (rank i takes row i of the
@@ -37,6 +39,12 @@ one worker each, started once for the whole file.
   momentum; the run matches the port's ``make_sim_train_step`` on
   ``SimMesh(4)`` with a controller of its own (losses and residual ratios
   rtol 1e-5, parameters atol 2e-6, momentum and factors atol 1e-5).
+* (h) The bfloat16 wire: ``BF16_STEPS`` PowerSGD steps of
+  ``make_train_step`` under ``TrainHyper(wire_dtype="bfloat16")`` against
+  the port's ``make_sim_train_step`` on ``SimMesh(4)`` from the same state:
+  replicas bit-identical, the records at itemsize 2, losses and
+  parameters within ``BF16_LOSS_RTOL`` / ``BF16_PARAM_ATOL`` (gloo's sum
+  order flips bfloat16 roundings of P and Q elements).
 * (e) Two more schemes of the zoo, 2 steps each with one base seed:
   ``random_k`` (shared-seed draws on a reduce) and ``sign_norm`` (a
   gather of int8 signs and float norms).  Every rank draws the same
@@ -93,18 +101,33 @@ ZOO_STEPS = {"random_k": 2, "sign_norm": 2}
 WARMUP_STEPS, WARMUP_K = 4, 2   # (f): PowerSGD, dense through step k − 1
 RANK_SCHEDULE, RANK_STEPS = "2@0,4@1,1@3", 4   # (g): ranks 2, 4, 4, 1
 ZOO_SEED = 7          # the base seed every rank passes to the step
-WIRES = ("auto", "float32", "int8", "int4")
+WIRES = ("auto", "float32", "bfloat16", "int8", "int4")
+BF16_STEPS = 2        # (h)
 RENDEZVOUS_S = 60     # init_process_group and every collective
 RESULTS_S = 140       # from the spawn to the last rank's result
 REDUCE_ATOL = 1e-6
 LOSS_RTOL, PARAM_ATOL = 1e-5, 2e-6
 STATE_ATOL = 1e-5     # momentum, Q factors, error buffers
+# (h): see test_bf16_wire_steps_match_sim
+BF16_LOSS_RTOL, BF16_PARAM_ATOL = 1e-5, 5e-4
+
+
+def bf16_reduce_tol(stacked):
+    """The bfloat16 wire's mean of a stacked ``(W, ...)`` input, summed by
+    gloo in its order and by the simulation in worker order, each add
+    rounded to bfloat16: each of the W − 1 partial sums may round
+    otherwise, by up to 2⁻⁸ of Σ|xᵢ| each, and the divide once more by
+    2⁻⁸ of the mean."""
+    a = np.abs(stacked.astype(np.float64)).sum(0)
+    return (W - 1) * 2.0**-8 * a / W + 2.0**-8 * a / W
 
 
 def _compressor(path):
     """``None``: the step's default, rank-2 PowerSGD."""
     if path == "top_k":
         return compressors.make_compressor("top_k", rank=2, wire_dtype="int4")
+    if path == "bf16":
+        return compressors.make_compressor("powersgd", rank=2, wire_dtype="bfloat16")
     return None
 
 
@@ -332,6 +355,8 @@ def _rank_main(rank, rdzv, inputs, results):
                                     start_compress_step=WARMUP_K)
         out["adaptive"] = _rank_adaptive(rank, inputs["start"]["powersgd"],
                                          inputs["batches"]["adaptive"])
+        out["bf16"] = _rank_steps(rank, "bf16", inputs["start"]["powersgd"],
+                                  inputs["batches"]["bf16"])
         results.put((rank, out))
     except BaseException:
         results.put((rank, traceback.format_exc()))
@@ -395,6 +420,7 @@ def _run_ranks():
     batches = {p: _batches(vocab, n) for p, n in {**STEPS, **ZOO_STEPS}.items()}
     batches["warmup"] = _batches(vocab, WARMUP_STEPS)
     batches["adaptive"] = _batches(vocab, RANK_STEPS)
+    batches["bf16"] = _batches(vocab, BF16_STEPS)
     refs = {p: _reference(p) for p in STEPS}
     refs["warmup"] = _reference("powersgd", start_compress_step=WARMUP_K)
     starts = {p: {"params": _np_tree(r[3], 0), "comp": _np_tree(r[4].comp, 0)}
@@ -478,13 +504,17 @@ def test_pmean_flat_matches_sim(run, wire):
     ctx, stats = _sim_ctx()
     parts = [torch.tensor(p) for p in run["inputs"]["backend"]["reduce"]]
     want = [x.numpy() for x in ctx.pmean_flat(parts, wire_dtype=wire)]
+    inputs = run["inputs"]["backend"]["reduce"]
     for r in range(W):
         got, records = run["ranks"][r]["backend"][("reduce", wire)]
         for i, (g, w_) in enumerate(zip(got, want)):
             assert g.dtype == w_.dtype and g.shape == w_.shape, i
-            np.testing.assert_allclose(g, w_, atol=REDUCE_ATOL, rtol=0,
-                                       err_msg=f"rank {r} part {i}")
+            atol = (bf16_reduce_tol(inputs[i]) if wire == "bfloat16"
+                    else REDUCE_ATOL)
+            assert np.all(np.abs(g - w_) <= atol), f"rank {r} part {i}"
         assert records == _records(stats)
+    if wire == "bfloat16":
+        assert _records(stats)[2] == [2]    # every float part, float64 too
 
 
 @pytest.mark.parametrize("wire", WIRES)
@@ -619,6 +649,55 @@ def test_zoo_replicas_and_draws_agree(run, name):
                           tree.leaves(bridge.to_numpy(params))):
         np.testing.assert_allclose(g, w_, atol=PARAM_ATOL, rtol=0,
                                    err_msg=str(list(p)))
+
+
+# ---------------------------------------------------------------------------
+# (h) the bfloat16 wire
+# ---------------------------------------------------------------------------
+
+def test_bf16_wire_steps_match_sim(run):
+    """``BF16_STEPS`` PowerSGD steps on the bfloat16 wire: the replicas stay
+    bit-identical and record 2 reduces of itemsize 2 a step; each rank's
+    losses within BF16_LOSS_RTOL and rank 0's parameters within
+    BF16_PARAM_ATOL of ``SimMesh(4)``.  gloo sums the 4 bfloat16 buffers
+    in its own order, the simulation folds them in worker order, so some P
+    and Q elements round to a neighbouring bfloat16 (2⁻⁸ relative) and
+    the update moves by lr times that, a whole row or column of it for a
+    flipped Q element.  Measured on these inputs (``python
+    tests/test_torch_dist.py``): losses 6.5e-8 relative, parameters up to
+    7.5e-5 apart, 110,828 of 1,705,216 beyond the float32 wire's 2e-6."""
+    digests = [run["ranks"][r]["bf16"]["digests"] for r in range(W)]
+    assert all(d == digests[0] for d in digests)
+    stats = dist.CollectiveStats()
+    losses, params = _bf16_sim_steps(run, stats)
+    for r in range(W):
+        got = run["ranks"][r]["bf16"]
+        np.testing.assert_allclose(got["losses"], losses, rtol=BF16_LOSS_RTOL)
+        assert got["records"] == [got["records"][0]] * BF16_STEPS
+        assert got["records"][0][:3] == (["reduce"] * 2, stats.sizes[:2], [2, 2])
+        assert got["calls"] == {"all_reduce": 3 * BF16_STEPS, "all_gather": 0}
+    for (p, g), w_ in zip(tree.items(run["ranks"][0]["bf16"]["params"]),
+                          tree.leaves(params)):
+        np.testing.assert_allclose(g, w_, atol=BF16_PARAM_ATOL, rtol=0,
+                                   err_msg=str(list(p)))
+
+
+def _bf16_sim_steps(run, stats=None):
+    """(h)'s steps on ``SimMesh(4)``: losses and the final parameters."""
+    start = run["inputs"]["start"]["powersgd"]
+    step, _ = train.make_sim_train_step(
+        llama3_8b.reduced_config(), SimMesh(W), _hyper(), _compressor("bf16"),
+        stats=stats, device="cpu")
+    params = bridge.to_torch(start["params"])
+    ef = EFState(error=tree.map(lambda p: torch.zeros((W,) + tuple(p.shape)), params),
+                 momentum=tree.map(torch.zeros_like, params),
+                 comp=bridge.to_torch(start["comp"]))
+    losses = []
+    for b in run["inputs"]["batches"]["bf16"]:
+        params, ef, m = step(params, ef, SimMesh(W).shard(
+            {k: torch.tensor(v) for k, v in b.items()}))
+        losses.append(m["lm_loss"].item())
+    return losses, bridge.to_numpy(params)
 
 
 # ---------------------------------------------------------------------------
@@ -775,6 +854,14 @@ if __name__ == "__main__":
         return max(float(np.abs(x - y).max()) for x, y in
                    zip(tree.leaves(a), tree.leaves(b)) if x is not None)
 
+    got, want = _bf16_sim_steps(out)
+    d = [np.abs(g - w_) for g, w_ in zip(tree.leaves(out["ranks"][0]["bf16"]["params"]),
+                                         tree.leaves(want))]
+    print(f"bf16 wire, distributed vs SimMesh(4): loss rel "
+          f"{max(abs(a - b) / abs(b) for a, b in zip(got, out['ranks'][0]['bf16']['losses'])):.2e}, "
+          f"params max {max(float(x.max()) for x in d):.2e}, beyond {PARAM_ATOL}: "
+          f"{sum(int((x > PARAM_ATOL).sum()) for x in d)} of {sum(x.size for x in d)}",
+          flush=True)
     for path in STEPS:
         ref, sim = out["reference"][path], _sim_port_steps(out, path)
         dist_run = dict(out["ranks"][0][path],

@@ -117,19 +117,22 @@ def test_flat_plan_ignores_worker_dims():
 
 @pytest.mark.parametrize("wire_dtype", ["bfloat16", "int8", "int4"])
 def test_unported_wire_dtypes_raise(wire_dtype):
-    """bfloat16 still waits for item 11 and raises; the quantized wires are
-    ported and plan like the reference (``tests/test_torch_topk.py`` holds
-    them slot for slot)."""
+    """Every wire is ported now (the name is kept).  The quantized wires
+    plan like the reference (``tests/test_torch_topk.py`` holds them slot
+    for slot); bfloat16 (item 11) plans the float part like the reference
+    and keeps the int32 part in a chunk of its own, where the reference
+    casts it into the bfloat16 chunk (``tests/test_torch_wire_bf16.py``)."""
     parts = [torch.zeros(3), torch.zeros(4, dtype=torch.int32)]
-    if wire_dtype not in mz.PORTED_WIRE_DTYPES:
-        with pytest.raises(NotImplementedError, match="item 11"):
-            mz.plan_flat(parts, wire_dtype=wire_dtype)
-        return
     plan = mz.plan_flat(parts, wire_dtype=wire_dtype)
     jplan = jmz.plan_flat([jnp.zeros(3), jnp.zeros(4, jnp.int32)],
                           wire_dtype=wire_dtype)
-    assert [(c.quant, c.size, c.wire_bytes) for c in plan.chunks] == [
-        (c.quant, c.size, c.wire_bytes) for c in jplan.chunks]
+    got = [(c.quant, c.size, c.wire_bytes) for c in plan.chunks]
+    want = [(c.quant, c.size, c.wire_bytes) for c in jplan.chunks]
+    if wire_dtype == "bfloat16":
+        assert want == [(None, 7, 14)]
+        assert got == [(None, 3, 6), (None, 4, 16)]
+    else:
+        assert got == want
 
 
 def test_flat_pack_unpack_roundtrip():

@@ -252,20 +252,21 @@ def test_compressed_floats_total_matches_reference():
 
 
 # the id of each case names the ROADMAP queue A item the option came from
-@pytest.mark.parametrize("kw,item", [({"bucketing": "off"}, None),
-                                     pytest.param({"track_residual": True}, None,
-                                                  id="kw1-item 8"),
-                                     ({"wire_dtype": "bfloat16"}, "item 11")])
-def test_unported_options_raise(kw, item):
-    """Options still to port raise, naming their ROADMAP queue A item;
+@pytest.mark.parametrize("kw", [pytest.param({"bucketing": "off"}, id="kw0-None"),
+                                pytest.param({"track_residual": True},
+                                             id="kw1-item 8"),
+                                pytest.param({"wire_dtype": "bfloat16"},
+                                             id="kw2-item 11")])
+def test_unported_options_raise(kw):
+    """Every option of these cases is ported now (the name is kept):
     ``bucketing="off"`` (the per-leaf path, item 4) is ported and matches
-    the reference's per-leaf path, and ``track_residual=True`` (item 8) is
+    the reference's per-leaf path, ``track_residual=True`` (item 8) is
     ported: it leaves the step as it was and reports each worker's
-    residual ratios within rtol 1e-5 of the reference's."""
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            powersgd.PowerSGDConfig(**kw)
-        return
+    residual ratios within rtol 1e-5 of the reference's, and
+    ``wire_dtype="bfloat16"`` (item 11) is ported: at these shapes no
+    bfloat16 rounding flips between the packages, so the step matches
+    within the float32 tolerances, its two reduces at itemsize 2
+    (``tests/test_torch_wire_bf16.py`` holds the wire bit for bit)."""
     deltas = _deltas(4)
     agg_r, recon_r, q_r, bits_r, stats_r, q0, mets_r = _reference(
         jpsgd.PowerSGDConfig(rank=2, **kw), deltas, 4, metrics=True)
@@ -276,6 +277,8 @@ def test_unported_options_raise(kw, item):
     _close(recon, recon_r, held_once=True)
     assert bits == bits_r
     assert stats.sizes == stats_r.sizes and stats.kinds == stats_r.kinds
+    assert stats.itemsizes == stats_r.itemsizes == (
+        [2, 2] if kw.get("wire_dtype") == "bfloat16" else stats.itemsizes)
     if mets_r is None:
         assert mets is None
         return

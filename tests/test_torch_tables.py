@@ -23,6 +23,9 @@ point (``repro_torch.bench.run``) and the α-β helpers of
   one-worker time for the gather scheme.
 * Table 3 end to end on the port (2 steps, no stubs): the modeled columns
   equal the reference's ``_fmt`` of the reference's bits; losses finite.
+* ``adaptive_rank_profile`` with training stubbed in both packages (a
+  fake drives each package's own controllers and applies its own plan):
+  rows equal, the autotuned row's plan included.
 * ``bench/run.py``: ``--out`` required and kept out of
   ``experiments/benchmarks/``; ``--only`` matches parts of names; Table 7
   trains 120 steps, 40 under ``--quick``; the unported tables raise naming
@@ -49,7 +52,7 @@ from repro.core import error_feedback as jef
 from repro.core import matrixize as jmz
 from repro.models import lstm as jlstm
 from repro.models import model as jmodel
-from repro_torch import bridge
+from repro_torch import bridge, tree
 from repro_torch.bench import common as bench
 from repro_torch.bench import run, tables
 from repro_torch.configs.base import get_config
@@ -316,6 +319,120 @@ def test_bits_and_name_at_lm_shapes_equal_reference(name, rank):
 
 
 # ---------------------------------------------------------------------------
+# adaptive_rank_profile, training stubbed
+# ---------------------------------------------------------------------------
+
+class FakeAdaptive:
+    """Stands in for ``make_compressor`` and ``train_lm`` in one package's
+    ``adaptive_rank_profile``: a fixed-rank run sends 1000·r floats a step;
+    a controller is driven over the run on a one-leaf state of its rank,
+    fed ``RESIDUALS``, and sends 1000·rank floats a step; a transform is
+    applied to the compressor's fresh state at the LM's shapes and the
+    payload counted at the resulting ranks.  ``eval_loss`` depends only on
+    the call's position."""
+
+    RESIDUALS = (0.9, 0.9, 0.95, 0.8, 0.1, 0.05, 0.2, 0.1)
+
+    def __init__(self, leaf, fresh, payload):
+        self.calls, self.devices = [], []
+        self.leaf, self.fresh, self.payload = leaf, fresh, payload
+
+    def make_compressor(self, name, rank=None, **kw):
+        assert name == "powersgd" and not kw
+        return ("compressor", name, rank)
+
+    def train_lm(self, comp, spec, eval_batches=8, controller=None,
+                 init_comp_transform=None, *, device="not given"):
+        self.devices.append(device)
+        result = {"eval_loss": 1.0 + len(self.calls) / 7.0 + 1e-7}
+        if isinstance(comp, tuple):
+            floats = 1000 * comp[2] * spec.steps
+            self.calls.append(("fixed", comp[2]))
+        elif controller is not None:
+            state, residual, floats = self.leaf(controller.rank), None, 0
+            for i in range(spec.steps):
+                state, _ = controller.update(state, i, residual)
+                floats += 1000 * controller.rank
+                residual = self.RESIDUALS[i % len(self.RESIDUALS)]
+            result.update(rank_history=list(controller.history),
+                          final_rank=controller.rank)
+            self.calls.append(("controller", tuple(controller.history)))
+        else:
+            per_step, ranks = self.payload(init_comp_transform(self.fresh(comp)))
+            floats = per_step * spec.steps
+            self.calls.append(("transform", ranks))
+        result["compressed_floats_total"] = floats
+        return result
+
+
+def _adaptive_fakes(steps):
+    jspec, spec = jcommon.LMSpec(steps=steps), bench.LMSpec(steps=steps)
+    jcfg, cfg = jcommon._make_cfg(jspec), bench._make_cfg(spec)
+    jparams = jax.eval_shape(lambda: jmodel.init(KEY, jcfg, 1))
+    jspecs = jmodel.mspecs(jcfg)
+    params, specs = model.init(cfg, None, device="meta"), model.mspecs(cfg)
+
+    def jpayload(state):
+        ranks = tuple(None if q is None else q.shape[-1]
+                      for q in jax.tree_util.tree_leaves(
+                          state, is_leaf=lambda x: x is None))
+        return jcommon.payload_floats(jparams, jspecs, state)[0], ranks
+
+    def payload(state):
+        ranks = tuple(None if q is None else q.shape[-1] for q in tree.leaves(state))
+        return bench.payload_floats(params, specs, state)[0], ranks
+
+    want = FakeAdaptive(lambda r: {"w": jnp.zeros((16, r))},
+                        lambda comp: comp.init(jparams, jspecs, KEY), jpayload)
+    got = FakeAdaptive(lambda r: {"w": torch.zeros(16, r)},
+                       lambda comp: comp.init(params, specs), payload)
+    return (jspec, want), (spec, got)
+
+
+@pytest.mark.parametrize("steps", [24, 150])
+def test_adaptive_rank_profile_rows_equal_reference(steps, monkeypatch):
+    """The seven rows (fixed ranks 1, 2, 4; both staircases; the residual
+    schedule; the autotuned plan) equal the reference's, keys and order
+    included, the plan's bucket ranks, wire and modeled ms from each
+    package's own autotuner over its own parameter shapes."""
+    (jspec, want_fake), (spec, got_fake) = _adaptive_fakes(steps)
+    for mod, fake in ((jtables, want_fake), (tables, got_fake)):
+        monkeypatch.setattr(mod, "make_compressor", fake.make_compressor)
+        monkeypatch.setattr(mod, "train_lm", fake.train_lm)
+    want = jtables.adaptive_rank_profile(jspec)
+    got = tables.adaptive_rank_profile(spec, device="cpu")
+    assert got_fake.calls == want_fake.calls
+    assert _items(got) == _items(want)
+    assert got_fake.devices == ["cpu"] * 7
+    assert [r["schedule"] for r in got] == [
+        "fixed_rank1", "fixed_rank2", "fixed_rank4", "staircase_up_1_2_4",
+        "staircase_down_4_2_1", "residual_energy", "autotuned_budget50"]
+    tuned = got[-1]
+    assert tuned["wire_dtype"] == "bfloat16"
+    # the reference's record of this row, at 150 steps
+    assert tuned["bucket_ranks"] == ("512x128:r1|128x512:r2|256x128:r1|"
+                                     "128x256:r1|128x128:r1")
+    assert len({r for r in got_fake.calls[-1][1] if r is not None}) == 2
+
+
+def test_run_writes_adaptive_rank_profile(tmp_path, monkeypatch):
+    calls = []
+    rows = [{"schedule": "fixed_rank1", "eval_loss": 2.0}]
+
+    def fake(spec, *, device):
+        calls.append((spec.steps, spec.workers, device.type))
+        return rows
+
+    monkeypatch.setattr(tables, "adaptive_rank_profile", fake)
+    before = _records_digest()
+    run.main(["--only", "adaptive_rank", "--quick", "--device", "cpu", "--out",
+              str(tmp_path)])
+    assert calls == [(40, 4, "cpu")]
+    assert json.loads((tmp_path / "adaptive_rank_profile.json").read_text()) == rows
+    assert _records_digest() == before
+
+
+# ---------------------------------------------------------------------------
 # Signum
 # ---------------------------------------------------------------------------
 
@@ -471,6 +588,7 @@ DEFAULT_DEVICE_CALLS = {
     **{d: lambda fn: fn(bench.LMSpec(steps=1)) for d in DRIVERS},
     "_signum_row": lambda fn: fn(bench.LMSpec(steps=1)),
     "table7_lstm": lambda fn: fn(1),
+    "adaptive_rank_profile": lambda fn: fn(bench.LMSpec(steps=1)),
     **{d: lambda fn: fn(_small_tree()[1][0], _small_tree()[1][1])
        for d in ("table5_time_breakdown", "fig3_scaling")},
 }

@@ -19,8 +19,8 @@ inputs, the reference's own draws fed in through ``Compressor.draw``.
   two LAPACK builds differ there.  Measured: Spectral Atomo within 7.1e-6
   of the largest magnitude (3.4e-5 absolute, where Atomo's s/p weights
   amplify the singular vectors' rounding), the exact oracle within 3.4e-6.
-* Declared budgets against ``ZOO_BUDGETS`` on every wire; the float32
-  wire keeps integer parts in chunks of their own (declared divergence,
+* Declared budgets against ``ZOO_BUDGETS`` on every wire; the float32 and
+  bfloat16 wires keep integer parts in chunks of their own (declared divergence,
   ``matrixize.plan_flat``).
 * ``sign_norm`` and ``spectral_atomo`` on the int8/int4 wires against the
   eager reference (queue C3 says why eager), the int8 signs bit for bit
@@ -367,22 +367,23 @@ def test_payload_selections_match_reference(name):
             np.testing.assert_array_equal(aux[0].numpy(), np.asarray(jaux[0]))
 
 
-@pytest.mark.parametrize("wire", ["auto", "float32", "int8", "int4"])
+@pytest.mark.parametrize("wire", ["auto", "float32", "bfloat16", "int8", "int4"])
 @pytest.mark.parametrize("name", NAMES)
 def test_declared_budget_matches_zoo_budgets(name, wire):
     """The port's declared budget is the reference's and ``ZOO_BUDGETS``'s,
-    and one step issues it.  On the float32 wire the port keeps the
-    integer parts (Top-K's int32 indices, Sign+Norm's int8 signs) in
-    chunks of their own, one gather more than the reference, which casts
-    them into the float chunk: (3, 1, 2) against (2, 1, 1)."""
+    and one step issues it.  On the float32 and bfloat16 wires the port
+    keeps the integer parts (Top-K's int32 indices, Sign+Norm's int8
+    signs) in chunks of their own, one gather more than the reference,
+    which casts them into the float chunk: (3, 1, 2) against (2, 1, 1)."""
     comp = _port_comp(name, wire_dtype=wire)
     want = _ref_comp(name, wire_dtype=wire).declared_budget()
-    if wire == "float32" and name in ("sign_norm", "top_k"):
+    cast = wire in ("float32", "bfloat16")
+    if cast and name in ("sign_norm", "top_k"):
         assert want == (2, 1, 1)
         assert comp.declared_budget() == (3, 1, 2)
     else:
         assert comp.declared_budget() == want
-    if wire != "float32":
+    if not cast:
         assert comp.declared_budget() == ZOO_BUDGETS[name]
     stats = CollectiveStats()
     state = None
