@@ -174,6 +174,22 @@ Phases, in order; any failure raises and the script exits non-zero:
               CPU under phase 9's rules; (e), inside phase 5's group, 3
               PowerSGD steps of ``make_train_step`` on the bfloat16 wire
               bit-equal to ``SimMesh(1)``.
+16. checkpoint — ``repro_torch.checkpoint`` and the CLI: (a) phase 6's
+              full width, CKPT_STEPS steps, ``save_train_state`` (the
+              whole ~23.8 GB state into ``build/ckpt_smoke/``; the phase
+              fails if the disk cannot hold it), CKPT_STEPS more; the
+              state freed; a new step and template, ``restore_train_state``
+              in place and the same steps: losses and parameters
+              bit-equal, with the free disk, the envelope's bytes, save
+              and restore seconds and GB/s, the host's peak resident set,
+              the card's memory above the template and a yardstick (as
+              many bytes written and fsynced to the same directory);
+              (b) ``python -m repro_torch.launch.train`` on reduced
+              Llama-3-8B (NCCL, world size 1) in processes of its own,
+              CLI_STEPS steps straight and CLI_SAVE_AT + ``--resume``
+              under CLI_SCHEDULE: equal ``hex=``; (c) that envelope
+              resumed on the CPU to CLI_STEPS, phase 3's rule against the
+              card.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after; the summary line gives each kernel's launches on every
@@ -192,6 +208,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -3429,6 +3446,274 @@ def dist_bf16(torch, mods, kernel_mods, cfg, CollectiveStats, pdist, n_buckets,
     return launches
 
 
+# -- phase 16: checkpoints, resume and the CLI --------------------------------
+
+CKPT_STEPS = 3        # (a): steps before the save, after it, after the restore
+CKPT_DIR = os.path.join(ROOT, "build", "ckpt_smoke")   # gitignored
+CLI_SCHEDULE = "1@0,2@4,4@8"   # (b): the save at step 6 falls mid-staircase
+CLI_STEPS, CLI_SAVE_AT = 12, 6
+
+
+class RssSampler:
+    """The process's resident set, sampled every 5 ms from
+    ``/proc/self/status`` in a thread: its peak over a ``with`` block."""
+
+    def __init__(self):
+        import threading
+        self.peak = self.start = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    @staticmethod
+    def _rss() -> int:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+        return 0
+
+    def _run(self):
+        while not self._stop.wait(0.005):
+            self.peak = max(self.peak, self._rss())
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+
+
+def tree_checksum(torch, tree, t):
+    """Per leaf, the int64 sum of its float32 bit patterns (wrapping): equal
+    sums for bit-equal trees, a difference for any single changed bit."""
+    return [None if x is None else
+            int(torch.sum(x.contiguous().view(torch.int32), dtype=torch.int64))
+            for x in tree.leaves(t)]
+
+
+def fsync_write_s(directory: str, nbytes: int) -> float:
+    """The yardstick: seconds to write ``nbytes`` (a 64 MiB random buffer
+    over and over) to a new file in ``directory`` and fsync it; the file is
+    removed after."""
+    buf = os.urandom(64 << 20)
+    path = os.path.join(directory, "yardstick.bin")
+    t0 = time.perf_counter()
+    with open(path, "wb") as f:
+        left = nbytes
+        while left:
+            n = min(left, len(buf))
+            f.write(memoryview(buf)[:n])
+            left -= n
+        f.flush()
+        os.fsync(f.fileno())
+    seconds = time.perf_counter() - t0
+    os.remove(path)
+    return seconds
+
+
+def ckpt_llama_phase(torch, mods, kernel_mods, cfg, ckpt, compressors, smi):
+    """(a): phase 6's configuration (full width, 2 of 32 layers, W = 2
+    simulated, PowerSGD r = 2, bucketed, float32 wire): CKPT_STEPS steps,
+    ``save_train_state``, CKPT_STEPS more; the state freed; then, as a new
+    process would, a new compressor, step and template (drawn from another
+    seed), ``restore_train_state`` into it and the same CKPT_STEPS steps.
+    Losses and parameters (and momentum) must be bit-equal.  Prints the
+    free disk, the envelope's bytes, save and restore seconds and GB/s, the
+    host's peak resident set during each, and the yardstick: writing and
+    fsyncing as many bytes to the same directory.  Every launch count is set
+    to 0 before the first step and read after the last.  Returns the
+    launches."""
+    train, tree, SimMesh, MarkovLM = mods
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    os.makedirs(CKPT_DIR)
+    sim = SimMesh(WORKERS)
+    batches = llama_batches(torch, MarkovLM, cfg, sim, 2 * CKPT_STEPS)
+
+    def build():
+        return train.make_sim_train_step(
+            cfg, sim, train.TrainHyper(),
+            compressor=compressors.make_compressor("powersgd", rank=RANK))
+
+    def steps(step, run, part):
+        """A step per batch of ``part`` on ``run`` = [params, ef], updated in
+        place: no name outside keeps a step's old error buffers alive."""
+        losses = []
+        for batch in part:
+            run[0], run[1], metrics = step(run[0], run[1], batch)
+            losses.append(metrics["lm_loss"].item())
+        torch.cuda.synchronize()
+        return losses
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches(kernel_mods)
+    step, init = build()
+    run = list(init(torch.Generator("cuda").manual_seed(0)))
+    head = steps(step, run, batches[:CKPT_STEPS])
+    state = ckpt.TrainState(params=run[0], ef=run[1], seed=0, data_step=run[1].step)
+    want_bytes = sum(x.numel() * x.element_size() for t in (
+        run[0], run[1].error, run[1].momentum, run[1].comp)
+        for x in tree.leaves(t) if x is not None)
+    free = shutil.disk_usage(CKPT_DIR).free
+    print(f"checkpoint llama: {want_bytes:,} bytes of tensors to save, "
+          f"{free:,} bytes free in {os.path.relpath(CKPT_DIR, ROOT)}", flush=True)
+    if free < want_bytes + (1 << 30):
+        fail(f"phase 16 (a): {CKPT_DIR} has {free:,} bytes free, the envelope "
+             f"needs {want_bytes:,}; the phase does not fall back to a smaller "
+             f"model")
+    with RssSampler() as rss_save:
+        t0 = time.perf_counter()
+        path = ckpt.save_train_state(CKPT_DIR, state)
+        save_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    del state
+    tail = steps(step, run, batches[CKPT_STEPS:])
+    peak_run = torch.cuda.max_memory_allocated() / 2**30
+    want = (tree_checksum(torch, tree, run[0]), tree_checksum(torch, tree, run[1].momentum))
+    del run, step, init
+    torch.cuda.empty_cache()
+
+    step, init = build()       # a new "process": nothing of the run survives
+    p0, e0 = init(torch.Generator("cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with RssSampler() as rss_restore:
+        t0 = time.perf_counter()
+        got, meta = ckpt.restore_train_state(
+            CKPT_DIR, ckpt.TrainState(params=p0, ef=e0, seed=0))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    restore_peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+    in_place = all(a is b for a, b in zip(tree.leaves(got.params), tree.leaves(p0)))
+    run = list(ckpt.replicate_sim(sim, got.params, got.ef))
+    del got, p0, e0
+    resumed = steps(step, run, batches[CKPT_STEPS:])
+    launches = read_all_launches(kernel_mods)
+    got_sums = (tree_checksum(torch, tree, run[0]), tree_checksum(torch, tree, run[1].momentum))
+    del run, step, init
+    torch.cuda.empty_cache()
+    os.remove(path)
+    yard_s = fsync_write_s(CKPT_DIR, size)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    row = {"check": "checkpoint llama", "card": smi, "steps": CKPT_STEPS,
+           "disk_free_bytes": free, "envelope_bytes": size,
+           "tensor_bytes": want_bytes, "save_s": save_s,
+           "save_gb_s": size / save_s / 1e9, "restore_s": restore_s,
+           "restore_gb_s": size / restore_s / 1e9,
+           "yardstick_write_fsync_s": yard_s,
+           "yardstick_gb_s": size / yard_s / 1e9,
+           "host_rss_gib_before_save": rss_save.start / 2**30,
+           "host_rss_peak_gib_save": rss_save.peak / 2**30,
+           "host_rss_peak_gib_restore": rss_restore.peak / 2**30,
+           "card_peak_gib_run": peak_run,
+           "card_gib_above_template_restore": restore_peak,
+           "restored_in_place": in_place, "meta_workers": meta["workers"],
+           "ef_rescale": meta["ef_rescale"], "losses_before": head,
+           "losses_straight": tail, "losses_resumed": resumed,
+           "bit_equal": resumed == tail and got_sums == want,
+           "launches": launches}
+    print(json.dumps(row), flush=True)
+    if not (resumed == tail and got_sums == want):
+        raise AssertionError(f"phase 16 (a): the resumed run is not the "
+                             f"straight one: losses {resumed} against {tail}, "
+                             f"checksums equal: {got_sums == want}")
+    if not in_place or size < want_bytes:
+        raise AssertionError(f"phase 16 (a): restored in place {in_place}, "
+                             f"envelope {size} bytes for {want_bytes}")
+    return launches
+
+
+def cli_run(argv, out_dir):
+    """``python -m repro_torch.launch.train`` on the card in a process of its
+    own (a one-rank NCCL group); returns its standard output."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    env["PYTHONPATH"] = os.path.join(ROOT, "src") + (
+        os.pathsep + os.environ["PYTHONPATH"] if os.environ.get("PYTHONPATH") else "")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--batch", "8",
+           "--seq", "128", "--rank-schedule", CLI_SCHEDULE, "--ckpt-dir", out_dir,
+           *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=600, check=False)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 16 (b): {' '.join(cmd[2:])} exited "
+                             f"{proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
+    print(f"cli {' '.join(argv)}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return proc.stdout
+
+
+def final_hex(out: str) -> str:
+    m = re.search(r"final lm_loss=\S+ hex=(\S+)", out)
+    if m is None:
+        raise AssertionError(f"no final lm_loss line in:\n{out}")
+    return m.group(1)
+
+
+def ckpt_cli_phase(train, ckpt, smi):
+    """(b): the CLI on the card, reduced Llama-3-8B, NCCL at world size 1,
+    in processes of its own: CLI_STEPS steps straight through, and
+    CLI_SAVE_AT steps followed by a ``--resume`` to CLI_STEPS, under
+    CLI_SCHEDULE so that the checkpoint falls mid-staircase; the two
+    ``hex=`` must be equal.  (c): the same step-CLI_SAVE_AT envelope
+    restored on the CPU (``main(..., "--device", "cpu")`` in this
+    process, a one-rank gloo group) and continued to CLI_STEPS: loss and
+    the final parameters within phase 3's rule against the card's resumed
+    run, the rank histories equal."""
+    import contextlib
+    import io
+
+    base = os.path.join(ROOT, "build", "ckpt_cli")
+    shutil.rmtree(base, ignore_errors=True)
+    straight, resumed, cpu = (os.path.join(base, k) for k in ("straight", "resumed",
+                                                              "cpu"))
+    out_straight = cli_run(["--steps", str(CLI_STEPS)], straight)
+    cli_run(["--steps", str(CLI_SAVE_AT)], resumed)
+    out_resumed = cli_run(["--steps", str(CLI_STEPS), "--resume"], resumed)
+    print(out_resumed, flush=True)
+    if f"resumed from step {CLI_SAVE_AT}" not in out_resumed:
+        raise AssertionError(f"phase 16 (b): no resume line:\n{out_resumed}")
+    h_straight, h_resumed = final_hex(out_straight), final_hex(out_resumed)
+    os.makedirs(cpu)
+    name = f"ckpt_{CLI_SAVE_AT:010d}.msgpack"
+    shutil.copy(os.path.join(resumed, name), os.path.join(cpu, name))
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        train.main(["--batch", "8", "--seq", "128", "--rank-schedule", CLI_SCHEDULE,
+                    "--ckpt-dir", cpu, "--steps", str(CLI_STEPS), "--resume",
+                    "--device", "cpu"])
+    cpu_s = time.perf_counter() - t0
+    h_cpu = final_hex(buf.getvalue())
+    env_card = ckpt.load_envelope(resumed, CLI_STEPS)
+    env_cpu = ckpt.load_envelope(cpu, CLI_STEPS)
+    p_card = [ckpt.decode_leaf(d) for d in env_card["leaves"]
+              if d["path"].startswith("['params']")]
+    p_cpu = [ckpt.decode_leaf(d) for d in env_cpu["leaves"]
+             if d["path"].startswith("['params']")]
+    l_card, l_cpu = float.fromhex(h_resumed), float.fromhex(h_cpu)
+    hist_card = env_card["meta"]["controller"]["history"]
+    hist_cpu = env_cpu["meta"]["controller"]["history"]
+    print(json.dumps({"check": "checkpoint cli", "card": smi,
+                      "schedule": CLI_SCHEDULE, "steps": CLI_STEPS,
+                      "saved_at": CLI_SAVE_AT, "hex_straight": h_straight,
+                      "hex_resumed": h_resumed, "bit_equal": h_straight == h_resumed,
+                      "history": hist_card, "cpu_seconds": cpu_s}), flush=True)
+    if h_straight != h_resumed:
+        raise AssertionError(f"phase 16 (b): resumed hex {h_resumed} against "
+                             f"straight {h_straight}")
+    check_powersgd_parity("checkpoint cli resumed on the cpu", [l_cpu], [l_card],
+                          p_cpu, p_card)
+    if hist_card != hist_cpu or hist_card != [[0, 1], [4, 2], [8, 4]]:
+        raise AssertionError(f"phase 16 (c): rank histories {hist_card} (card), "
+                             f"{hist_cpu} (CPU)")
+    shutil.rmtree(base, ignore_errors=True)
+
+
 def int4_chunk(torch, cfg, model, matrixize, tree, workers, scheme="top_k"):
     """(chunk, parts, (workers, codes)): the int4 chunk ``scheme``'s gather
     packs each step on ``cfg``, the payload parts it plans from (meta
@@ -3499,6 +3784,7 @@ def main() -> None:
             fail(f"the port's sources are not beside this script ({src})")
     sys.path.insert(0, src)
 
+    from repro_torch import checkpoint as ckpt
     from repro_torch import tree
     from repro_torch.bench import common as bench
     from repro_torch.bench import tables
@@ -3793,6 +4079,21 @@ def main() -> None:
     print(f"bf16 and tuned: {time.perf_counter() - t_tuned:.1f} s (and (e) in "
           f"phase 5)")
 
+    # -- 16. checkpoints, resume and the CLI ----------------------------------
+    t_ckpt = time.perf_counter()
+    ckpt_launches = ckpt_llama_phase(torch, tmods, kernel_mods, cfg, ckpt,
+                                     compressors, smi)
+    want = {"lowrank_project": 3 * CKPT_STEPS * len(buckets),
+            "lowrank_backproject": 3 * CKPT_STEPS * len(buckets),
+            "nibble_pack": 0, "nibble_unpack": 0, "ef_apply": 0}
+    if ckpt_launches != want:
+        raise AssertionError(f"checkpoint launches {ckpt_launches}, want {want} "
+                             f"({3 * CKPT_STEPS} steps x {len(buckets)} buckets)")
+    t_cli = time.perf_counter()
+    ckpt_cli_phase(train, ckpt, smi)
+    print(f"checkpoint: {time.perf_counter() - t_ckpt:.1f} s ((b) and (c) "
+          f"{time.perf_counter() - t_cli:.1f} s)")
+
     # launches of each kernel on every path this run drove
     paths = {"llama powersgd": psgd, "llama top_k_int4": topk,
              **{f"dist {k}": v for k, v in dist_launches.items()},
@@ -3805,7 +4106,7 @@ def main() -> None:
              **{f"warmup {k}": v for k, v in warmup_launches.items()},
              **{f"adaptive {k}": v for k, v in adaptive_launches.items()},
              **{f"orthogonalizers llama {k}": v for k, v in orth_launches.items()},
-             **tuned_launches}
+             **tuned_launches, "checkpoint llama powersgd": ckpt_launches}
     by_path = lambda kernel: {p: v[kernel] for p, v in paths.items() if v[kernel]}
 
     summary = []

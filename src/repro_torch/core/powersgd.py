@@ -331,21 +331,40 @@ class RankController:
 
     def state_dict(self) -> dict:
         """A snapshot of plain Python values: ``rank``, ``ema`` and
-        ``history`` as the JAX package's, and the port's ``seed`` and
-        ``switches`` in place of its key."""
+        ``history`` as the JAX package's, the port's ``seed`` and
+        ``switches``, and ``key_data``/``key_dtype`` as the JAX package
+        writes them for ``jax.random.key(seed)`` (the words ``[seed >> 32,
+        seed & 0xFFFFFFFF]``), so that its ``load_state_dict`` takes the
+        snapshot too."""
         return {"rank": int(self.rank),
                 "ema": None if self._ema is None else float(self._ema),
                 "history": [[int(s), int(r)] for s, r in self.history],
+                "key_data": [(self.seed >> 32) & 0xFFFFFFFF,
+                             self.seed & 0xFFFFFFFF],
+                "key_dtype": "key<fry>",
                 "seed": int(self.seed), "switches": int(self.switches)}
 
     def load_state_dict(self, d: dict) -> "RankController":
         """Restore a :meth:`state_dict` snapshot (the schedule comes from
-        the constructor)."""
+        the constructor), the port's or the JAX package's.
+
+        ``rank``, ``ema`` and ``history`` are taken as they are.  A JAX
+        package snapshot holds a split key where the port keeps ``seed``
+        and ``switches``; this controller then keeps its own seed and
+        counts the switches already taken, ``len(history) − 1``, so its
+        next growth draws the columns a port run from the start would
+        draw at that switch.  Declared divergence: neither package can
+        continue the other's column stream, so the columns of a growth
+        after a restore across packages differ (a truncation keeps the
+        retained columns, bit for bit, in both)."""
         self.rank = int(d["rank"])
         self._ema = None if d["ema"] is None else float(d["ema"])
         self.history = [(int(s), int(r)) for s, r in d["history"]]
-        self.seed = int(d["seed"])
-        self.switches = int(d["switches"])
+        if "seed" in d:
+            self.seed = int(d["seed"])
+            self.switches = int(d["switches"])
+        else:
+            self.switches = len(self.history) - 1
         return self
 
 

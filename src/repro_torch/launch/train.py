@@ -32,24 +32,35 @@ compressor.  The schedule is driven by the caller's loop, between steps:
 the loss is, outside ``stats``, so every rank sees the same value and
 takes the same switch.
 
-The command-line entry point and checkpointing wait for ROADMAP queue A,
-item 10; the model axis (tensor parallelism) for ROADMAP queue A, item 14.
+:func:`main` is the command-line entry point, ``python -m
+repro_torch.launch.train``: the JAX package's flags, printed lines,
+checkpoints (:mod:`repro_torch.checkpoint`, envelopes either package
+reads) and resume guards, one process per worker.  The model axis (tensor
+parallelism) waits for ROADMAP queue A, item 14.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import datetime
+import os
+import tempfile
+import time
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as tdist
 
 from repro_torch import tree
-from repro_torch.configs.base import ModelConfig
-from repro_torch.core import error_feedback
+from repro_torch.checkpoint import train_state as ts
+from repro_torch.configs.base import ModelConfig, get_config
+from repro_torch.core import error_feedback, matrixize
 from repro_torch.core.compressors import Compressor, PowerSGDCompressor
 from repro_torch.core.dist import DistBackend, MeshCtx
 from repro_torch.core.error_feedback import EFState
 from repro_torch.core.simmesh import SimMesh
+from repro_torch.data.synthetic import MarkovLM
 from repro_torch.models import model
 from repro_torch.optim import schedules
 
@@ -258,3 +269,226 @@ def make_sim_train_step(cfg: ModelConfig, sim, hyper: TrainHyper,
                     sim.ctx(stats=stats, weights=weights, device=dev), seed)
 
     return step_fn, init_state
+
+
+def check_wire_dtype_meta(meta: dict, wire_dtype: str) -> None:
+    """Resume guard: the checkpoint's recorded wire policy must match.
+
+    Under a quantized wire every step's quantization error lands in the
+    error buffers, so the buffers in the envelope mean something only under
+    the policy that made them.  A mismatch is a configuration error."""
+    saved = meta.get("wire_dtype", "auto")
+    if saved != wire_dtype:
+        raise SystemExit(
+            f"--wire-dtype {wire_dtype!r} does not match the checkpoint's "
+            f"{saved!r} — the wire policy shapes the error-feedback "
+            f"trajectory (quantization error is part of the algorithm "
+            f"state); resume with the wire dtype the run was started with")
+
+
+# ---------------------------------------------------------------------------
+# The command line: end-to-end training of the reduced model, one process per
+# worker
+# ---------------------------------------------------------------------------
+
+def _join_group(dev: torch.device, rendezvous_dir: str) -> bool:
+    """Make sure a default process group exists: keep one that does, else
+    join torchrun's (``RANK``/``WORLD_SIZE`` in the environment), else make
+    a one-rank group on a file store in ``rendezvous_dir``; NCCL for the
+    card, gloo for the CPU.  Returns whether this call made it."""
+    if tdist.is_initialized():
+        return False
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    kw = {"timeout": datetime.timedelta(seconds=60)}
+    if dev.type == "cuda":
+        kw["device_id"] = dev
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        tdist.init_process_group(backend, **kw)
+    else:
+        tdist.init_process_group(
+            backend, init_method=f"file://{rendezvous_dir}/rdzv",
+            world_size=1, rank=0, **kw)
+    return True
+
+
+def main(argv=None) -> None:
+    """``python -m repro_torch.launch.train``: train the reduced model of
+    ``--arch`` with EF-PowerSGD, one worker per process of the default
+    process group (or a one-rank group), on ``--device`` (the card unless
+    told otherwise).  Flags, printed lines, checkpoints and resume guards
+    are the JAX package's; ``--sync-mode broadcast`` waits for ROADMAP queue
+    A, item 13 and ``--staleness one_step`` for item 12."""
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
+    ap.add_argument("--arch", default="llama3-8b")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8,
+                    help="global batch, split evenly over the processes")
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--rank", type=int, default=2)
+    ap.add_argument("--rank-schedule", default=None,
+                    help="adaptive-rank spec, e.g. '4@0,2@60,1@120' or "
+                         "'residual:min=1,max=8,init=4' (see "
+                         "repro_torch.core.powersgd.parse_schedule)")
+    ap.add_argument("--lr", type=float, default=0.05)
+    ap.add_argument("--sync-mode", default="allreduce",
+                    choices=("allreduce", "broadcast"),
+                    help="'broadcast' (replica-deterministic aggregates) is "
+                         "not ported yet (ROADMAP queue A, item 13)")
+    ap.add_argument("--wire-dtype", default="auto",
+                    choices=matrixize.WIRE_DTYPES,
+                    help="fused-collective wire policy: 'auto' keeps each "
+                         "part's dtype, float32/bfloat16 cast, int8/int4 "
+                         "quantize float payloads symmetrically per slot")
+    ap.add_argument("--staleness", default="none",
+                    choices=("none", "one_step"),
+                    help="'one_step' (the delayed-update pipeline) is not "
+                         "ported yet (ROADMAP queue A, item 12)")
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (default; each torchrun process takes "
+                         "cuda:LOCAL_RANK) or 'cpu'")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="save a full TrainState checkpoint every N steps "
+                         "(0 = only at the end; needs --ckpt-dir)")
+    ap.add_argument("--ckpt-keep", type=int, default=3,
+                    help="retention: keep the newest N checkpoints")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the latest checkpoint in --ckpt-dir: "
+                         "full algorithm state (EF buffers, warm-start "
+                         "factors, rank controller, base seed, data "
+                         "cursor), bit-exact at the same worker count")
+    args = ap.parse_args(argv)
+    if args.ckpt_every and not args.ckpt_dir:
+        ap.error("--ckpt-every requires --ckpt-dir (no checkpoint would "
+                 "ever be written)")
+    if args.resume and not args.ckpt_dir:
+        ap.error("--resume requires --ckpt-dir")
+    if args.sync_mode != "allreduce":
+        raise NotImplementedError(
+            f"--sync-mode {args.sync_mode!r} is not ported yet (ROADMAP "
+            f"queue A, item 13)")
+    if args.staleness != "none":
+        raise NotImplementedError(
+            f"--staleness {args.staleness!r} is not ported yet (ROADMAP "
+            f"queue A, item 12)")
+
+    cfg = get_config(args.arch, reduced=True)
+    dev = resolve_device(args.device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    with tempfile.TemporaryDirectory() as rendezvous:
+        made = _join_group(dev, rendezvous)
+        try:
+            _train(args, cfg, dev)
+        finally:
+            if made:
+                tdist.destroy_process_group()
+
+
+def _train(args, cfg, dev) -> None:
+    """The body of :func:`main`, inside the process group."""
+    world, rank = tdist.get_world_size(), tdist.get_rank()
+    if args.batch % world:
+        raise SystemExit(f"--batch {args.batch} does not split over "
+                         f"{world} processes")
+    say = print if rank == 0 else (lambda *a, **k: None)
+    hyper = TrainHyper(lr=args.lr, rank=args.rank, q_chunk=64,
+                       warmup_steps=20, rank_schedule=args.rank_schedule,
+                       wire_dtype=args.wire_dtype)
+    compressor = PowerSGDCompressor(
+        rank=args.rank, rank_schedule=args.rank_schedule,
+        wire_dtype=args.wire_dtype)
+    step_fn, init_state = make_train_step(cfg, hyper, compressor=compressor,
+                                          device=dev)
+    controller = (compressor.controller()
+                  if compressor.rank_schedule is not None else None)
+    seed = 0   # the base seed (the JAX package's jax.random.key(0))
+    params, ef = init_state(torch.Generator(dev).manual_seed(0))
+    data = MarkovLM(vocab=cfg.vocab_size, seed=0)
+
+    start, residual = 0, None
+    if args.resume:
+        p_c, ef_c = ts.canonicalize_dist(params, ef)
+        template = ts.TrainState(params=p_c, ef=ef_c, seed=seed)
+        state, meta = ts.restore_train_state(args.ckpt_dir, template,
+                                             model_axis_size=1)
+        if meta.get("rank_schedule") != args.rank_schedule:
+            raise SystemExit(
+                f"--rank-schedule {args.rank_schedule!r} does not match the "
+                f"checkpoint's {meta.get('rank_schedule')!r} — resume with "
+                f"the schedule the run was started with")
+        if meta.get("staleness", "none") != args.staleness:
+            raise SystemExit(
+                f"--staleness {args.staleness!r} does not match the "
+                f"checkpoint's {meta.get('staleness', 'none')!r} — the "
+                f"envelope does (not) carry an in-flight aggregate; resume "
+                f"with the mode the run was started with")
+        check_wire_dtype_meta(meta, args.wire_dtype)
+        params, ef = ts.replicate_dist(state.params, state.ef)
+        seed = state.seed
+        start = int(state.ef.step)
+        if state.data_step != start:
+            raise SystemExit(
+                f"checkpoint data cursor {state.data_step} does not "
+                f"match its step counter {start} — this CLI keys batches "
+                f"by step, so the envelope was written by another training "
+                f"loop; resume it with that loop")
+        if controller is not None and meta.get("controller"):
+            controller.load_state_dict(meta["controller"])
+        residual = meta.get("last_residual")
+        say(f"resumed from step {start} in {args.ckpt_dir} "
+            f"(saved at {meta.get('workers')} worker(s), rank "
+            f"{controller.rank if controller else args.rank})")
+
+    def save_ckpt():
+        # the state after the step that just completed: "about to run step
+        # ef.step"; a collective (the error buffers are gathered), rank 0
+        # writes
+        p_c, ef_c = ts.canonicalize_dist(params, ef)
+        if rank != 0:
+            return None
+        return ts.save_train_state(
+            args.ckpt_dir,
+            ts.TrainState(params=p_c, ef=ef_c, seed=seed,
+                          data_step=int(ef.step)),
+            controller=controller, keep=args.ckpt_keep, model_axis_size=1,
+            mesh_shape={"data": world, "model": 1},
+            extra_meta={"rank_schedule": args.rank_schedule,
+                        "arch": args.arch, "last_residual": residual,
+                        "staleness": args.staleness,
+                        "wire_dtype": args.wire_dtype})
+
+    lo, hi = rank * args.batch // world, (rank + 1) * args.batch // world
+    t0 = time.time()
+    metrics = {}
+    for i in range(start, args.steps):
+        if controller is not None:
+            new_comp, changed = controller.update(ef.comp, i, residual)
+            if changed:
+                ef = error_feedback.replace_comp(ef, new_comp)
+                say(f"step {i:4d} rank -> {controller.rank}")
+        # the data cursor is the step index: batch i is sample(step=i), so a
+        # resumed run rejoins the stream where it left off
+        toks = torch.from_numpy(data.sample(args.batch, args.seq, step=i)[lo:hi])
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:].contiguous()}
+        params, ef, metrics = step_fn(params, ef, batch, seed=seed)
+        if "residual_ratio" in metrics:
+            residual = float(metrics["residual_ratio"])
+        if i % 10 == 0 or i == args.steps - 1:
+            say(f"step {i:4d} loss={float(metrics['lm_loss']):.4f} "
+                f"lr={float(metrics['lr']):.4f} ({time.time() - t0:.1f}s)")
+        if args.ckpt_dir and args.ckpt_every and (i + 1) % args.ckpt_every == 0:
+            path = save_ckpt()
+            say(f"step {i:4d} checkpoint -> {path}")
+    if args.ckpt_dir and start < args.steps:
+        path = save_ckpt()
+        say(f"final checkpoint -> {path}")
+    if metrics:
+        # full precision, so that a resumed run can be compared bit for bit
+        loss = float(metrics["lm_loss"])
+        say(f"final lm_loss={loss:.6f} hex={loss.hex()}")
+
+
+if __name__ == "__main__":
+    main()
