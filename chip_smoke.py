@@ -190,6 +190,20 @@ Phases, in order; any failure raises and the script exits non-zero:
               under CLI_SCHEDULE: equal ``hex=``; (c) that envelope
               resumed on the CPU to CLI_STEPS, phase 3's rule against the
               card.
+17. staleness — ``TrainHyper(staleness="one_step")``, the delayed-update
+              pipeline: (a) phase 6's full width, STALE_STEPS synchronous
+              then STALE_STEPS one-step steps from one initial state:
+              per-step ms, peak, bits, records and launches side by side,
+              the bubble (parameters and momentum untouched by step 0),
+              step 0's error buffers and parked aggregate bit-equal to the
+              synchronous run's, the records equal, the park's copy timed;
+              (b) reduced Llama-3-8B at W = 2, card against CPU: PowerSGD
+              (also with ``start_compress_step=1``) and Top-K/int4; (c),
+              inside phase 5's group, ``make_train_step`` on NCCL with the
+              reduces chunked: the pipelined transport's asynchronous
+              all-reduces bit-equal to the serial transport and to
+              ``SimMesh(1)``, with the same records and calls; (d) a save
+              in mid pipeline resumed bit for bit.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after; the summary line gives each kernel's launches on every
@@ -856,12 +870,13 @@ def ef_apply_ragged(torch, ops, ef_kernel, ref):
 
 
 def parity_phase(torch, mods, name, make_compressor, check, workers=2,
-                 weights=None, steps=3, start_compress_step=0, after_step=None):
+                 weights=None, steps=3, start_compress_step=0, after_step=None,
+                 staleness="none"):
     """Reduced Llama-3-8B, ``steps`` steps, ``workers`` workers (2
     sequences each) under the scenario ``weights`` (``None``: uniform),
-    the first ``start_compress_step`` of them dense: the card (kernels)
-    against the CPU (plain versions), from identical parameters and
-    compressor state.  ``check(losses_cpu, losses_card, params_cpu,
+    the first ``start_compress_step`` of them dense, under ``staleness``:
+    the card (kernels) against the CPU (plain versions), from identical
+    parameters and compressor state.  ``check(losses_cpu, losses_card, params_cpu,
     params_card)`` raises on disagreement; ``after_step(device, i, ef)``,
     if given, runs after each step.  Returns the card's step, its state
     after the last step, the mesh and the data stream."""
@@ -869,7 +884,8 @@ def parity_phase(torch, mods, name, make_compressor, check, workers=2,
     cfg = llama3_8b.reduced_config()
     sim = SimMesh(workers)
     hyper = train.TrainHyper(q_chunk=64, warmup_steps=2,
-                             start_compress_step=start_compress_step)
+                             start_compress_step=start_compress_step,
+                             staleness=staleness)
     _, init = train.make_sim_train_step(cfg, sim, hyper, device="cpu",
                                         compressor=make_compressor())
     runs = {}
@@ -1340,9 +1356,9 @@ def dist_phase(torch, mods, kernel_mods, cfg, compressors, CollectiveStats,
     with the simulated step in the CPU's place.  Every launch count and the
     count of ``torch.distributed`` calls are set to 0 just before the
     distributed run and read just after.  Then phase 12 (c), phase 13 (c),
-    phase 14 (d) and phase 15 (e) in the same group (``adaptive``: the port's
-    ``powersgd`` and ``error_feedback`` modules).  Returns {path:
-    launches}."""
+    phase 14 (d), phase 15 (e) and phase 17 (c) in the same group
+    (``adaptive``: the port's ``powersgd`` and ``error_feedback`` modules).
+    Returns {path: launches}."""
     import torch.distributed as tdist
 
     tree, MarkovLM = mods[1], mods[3]
@@ -1442,6 +1458,9 @@ def dist_phase(torch, mods, kernel_mods, cfg, compressors, CollectiveStats,
                                                smi, batches)
             out["bf16"] = dist_bf16(torch, mods, kernel_mods, cfg, CollectiveStats,
                                     pdist, n_buckets, smi, batches)
+            out["staleness"] = dist_stale(torch, mods, kernel_mods, cfg,
+                                          compressors, CollectiveStats, pdist,
+                                          n_buckets, smi, batches)
         finally:
             tdist.destroy_process_group()
     return out
@@ -3714,6 +3733,361 @@ def ckpt_cli_phase(train, ckpt, smi):
     shutil.rmtree(base, ignore_errors=True)
 
 
+# One-step staleness (phase 17): ``TrainHyper(staleness="one_step")``, the
+# delayed-parameter-update pipeline: step t applies step t−1's aggregate
+# (``EFState.inflight``, parked by a copy into its own storage) and the
+# default compressor runs on the double-buffered PipelinedTransport.
+# (a) Phase 6's full width, STALE_STEPS steps of the "none" run, then
+# STALE_STEPS one-step steps from the same initial state: per-step ms,
+# peak, bits, records and launches side by side; after step 0 the bubble
+# (parameters as initialized, momentum 0, bit for bit), the error buffers
+# the "none" run's and the parked aggregate its aggregate (its momentum
+# after step 0, momentum starting at 0), bit for bit; the records of every
+# step the "none" run's; the park's copy timed alone.  (b) Reduced
+# Llama-3-8B at W = 2, STALE_SMALL_STEPS one-step steps, card against CPU:
+# PowerSGD under phase 3's rule (also with start_compress_step=1) and
+# Top-K/int4 under its flip rule.  (c), inside phase 5's group:
+# ``make_train_step`` with one-step staleness over NCCL, the reduces split
+# at STALE_DIST_CAP so that the interleaved schedule has chunks to overlap:
+# the pipelined transport (each chunk's all_reduce issued asynchronously)
+# bit-equal to the serial one and to ``SimMesh(1)``, with the serial
+# schedule's records and torch.distributed calls.  (d) Reduced Llama-3-8B
+# at W = 2 on the card: a save after STALE_SAVE_AT steps, the in-flight
+# aggregate nonzero, restored into a new template; the next steps' losses,
+# parameters and in-flight tree bit-equal to the straight run's.
+
+STALE_STEPS = 5            # (a), each run
+STALE_SMALL_STEPS = 4      # (b)
+STALE_DIST_CAP = 256 << 10  # (c): P travels in 4 chunks, Q in 5
+STALE_SAVE_AT, STALE_AFTER = 2, 2   # (d)
+
+
+def host_copy(tree, t):
+    return [None if x is None else x.cpu() for x in tree.leaves(t)]
+
+
+def equal_to_host(torch, tree, t, host) -> bool:
+    """Every leaf of ``t`` bit-equal to its host copy (moved back one leaf
+    at a time)."""
+    return all((x is None and y is None) or torch.equal(x, y.to(x.device))
+               for x, y in zip(tree.leaves(t), host))
+
+
+def stale_llama_run(torch, mods, kernel_mods, cfg, stats, staleness, batches,
+                    after_step=None):
+    """STALE_STEPS steps of phase 6's configuration under ``staleness``
+    (the default compressor: rank-RANK PowerSGD, on the pipelined transport
+    under "one_step"), from the state ``init_state`` draws from seed 0.
+    ``after_step(i, params, ef)`` runs after each step, outside its
+    timing.  Per step: loss, ms, peak GiB (the peak reset before it), bits,
+    records and launches (reset before it); the final state."""
+    train, tree = mods[0], mods[1]
+    sim = mods[2](WORKERS)
+    step, init = train.make_sim_train_step(
+        cfg, sim, train.TrainHyper(staleness=staleness), stats=stats)
+    params, ef = init(torch.Generator("cuda").manual_seed(0))
+    if after_step is not None:
+        after_step(-1, params, ef)
+    torch.cuda.synchronize()
+    rows = []
+    for i, batch in enumerate(batches):
+        stats.reset()
+        reset_all_launches(kernel_mods)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, ef, metrics = step(params, ef, batch)
+        loss = metrics["lm_loss"].item()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rows.append({"step": i, "lm_loss": loss, "step_ms": ms,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "bits_per_worker": metrics["bits_per_worker"],
+                     "launches": read_all_launches(kernel_mods),
+                     "records": collective_records(stats)})
+        print(f"staleness {staleness} step {i} lm_loss={loss:.6f} "
+              f"step_ms={ms:.1f}", flush=True)
+        if after_step is not None:
+            after_step(i, params, ef)
+    return rows, params, ef
+
+
+def park_copy_ms(torch, tree, ef, reps: int = 3) -> float:
+    """Device ms of the park alone: one ``copy_`` of a parameter-shaped tree
+    into the in-flight tree (here the momentum's, after the run), the
+    median of ``reps`` by CUDA events."""
+    times = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for dst, src in zip(tree.leaves(ef.inflight), tree.leaves(ef.momentum)):
+            dst.copy_(src)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def stale_llama_phase(torch, mods, kernel_mods, cfg, CollectiveStats, n_buckets,
+                      psgd_run, peaks, smi):
+    """(a); ``psgd_run`` holds phase 6's median step ms and peak GiB.
+    Returns the one-step run's launches."""
+    train, tree, SimMesh, MarkovLM = mods
+    sim = SimMesh(WORKERS)
+    batches = llama_batches(torch, MarkovLM, cfg, sim, STALE_STEPS)
+    host = {}
+
+    def keep_none(i, params, ef):
+        if i == -1:
+            host["params"] = host_copy(tree, params)
+        elif i == 0:
+            host["error"] = host_copy(tree, ef.error)
+            host["agg"] = host_copy(tree, ef.momentum)   # 0.9 · 0 + Δ'₀
+
+    s_none, s_stale = CollectiveStats(), CollectiveStats()
+    t0 = time.perf_counter()
+    rows_none, params, ef = stale_llama_run(torch, mods, kernel_mods, cfg, s_none,
+                                            "none", batches, keep_none)
+    del params, ef
+    torch.cuda.empty_cache()
+    checks = {}
+
+    def check_bubble(i, params, ef):
+        if i != 0:
+            return
+        checks["params_unchanged_by_step_0"] = equal_to_host(
+            torch, tree, params, host.pop("params"))
+        checks["momentum_zero_after_step_0"] = all(
+            not bool(m.any()) for m in tree.leaves(ef.momentum))
+        checks["error_equal_to_none_after_step_0"] = equal_to_host(
+            torch, tree, ef.error, host.pop("error"))
+        checks["parked_equal_to_none_aggregate"] = equal_to_host(
+            torch, tree, ef.inflight, host.pop("agg"))
+
+    rows, params, ef = stale_llama_run(torch, mods, kernel_mods, cfg, s_stale,
+                                       "one_step", batches, check_bubble)
+    finite = (all(math.isfinite(r["lm_loss"]) for r in rows)
+              and all_finite(torch, tree, params, ef.error, ef.momentum, ef.comp,
+                             ef.inflight))
+    parked_nonzero = any(bool(x.any()) for x in tree.leaves(ef.inflight))
+    park_ms = park_copy_ms(torch, tree, ef)
+    n_bytes = sum(x.numel() * x.element_size() for x in tree.leaves(ef.inflight))
+    park_bound_ms = 2 * n_bytes / peaks[1] * 1e3
+    launches = {name: sum(r["launches"][name] for r in rows)
+                for name in rows[0]["launches"]}
+    summary = {
+        "check": "staleness llama", "card": smi, "workers": WORKERS,
+        "steps": STALE_STEPS, "rows_one_step": rows, "rows_none": rows_none,
+        **checks,
+        "records_equal_to_none": [r["records"] for r in rows]
+        == [r["records"] for r in rows_none],
+        "median_step_ms_one_step": statistics.median(r["step_ms"] for r in rows),
+        "median_step_ms_none": statistics.median(r["step_ms"] for r in rows_none),
+        "phase6_median_step_ms": psgd_run["median_step_ms"],
+        "peak_gib_one_step": max(r["peak_gib"] for r in rows),
+        "peak_gib_none": max(r["peak_gib"] for r in rows_none),
+        "phase6_peak_gib": psgd_run["peak_gib"],
+        "inflight_bytes": n_bytes, "park_copy_ms": park_ms,
+        "park_copy_bound_ms": park_bound_ms, "launches": launches,
+        "seconds": time.perf_counter() - t0}
+    print(json.dumps(summary), flush=True)
+    del params, ef, batches
+    torch.cuda.empty_cache()
+    problems = [k for k, v in checks.items() if not v]
+    if len(checks) != 4:
+        problems.append("the bubble was not checked")
+    if not summary["records_equal_to_none"]:
+        problems.append("records differ from the synchronous run's")
+    for r in rows:
+        want = {name: 0 for name in r["launches"]}
+        want.update(lowrank_project=n_buckets, lowrank_backproject=n_buckets)
+        if r["launches"] != want:
+            problems.append(f"step {r['step']}: launches {r['launches']}, want {want}")
+        if r["records"][0] != ["reduce", "reduce"]:
+            problems.append(f"step {r['step']}: records {r['records'][0]}")
+    if rows[0]["lm_loss"] != rows_none[0]["lm_loss"]:
+        problems.append("the first loss differs from the synchronous run's")
+    if not (finite and parked_nonzero):
+        problems.append(f"finite {finite}, parked aggregate nonzero {parked_nonzero}")
+    if problems:
+        raise AssertionError(f"staleness llama: {problems}")
+    return launches
+
+
+def stale_small_phase(torch, pmods, compressors, kernel_mods, n_buckets):
+    """(b): reduced Llama-3-8B at W = 2, STALE_SMALL_STEPS one-step steps,
+    card against CPU; the card's launches read after each step (every
+    launch count set to 0 after each step on either device).  Returns
+    {path: launches}."""
+    tree = pmods[4]
+    psgd = {"lowrank_project": n_buckets, "lowrank_backproject": n_buckets}
+    paths = {
+        "powersgd": (lambda: compressors.make_compressor("powersgd", rank=RANK,
+                                                         pipeline=True),
+                     check_powersgd_parity, 0, psgd),
+        "powersgd k=1": (lambda: compressors.make_compressor(
+            "powersgd", rank=RANK, pipeline=True), check_powersgd_parity, 1, psgd),
+        "top_k_int4": (lambda: compressors.make_compressor(
+            "top_k", rank=RANK, wire_dtype="int4"), check_topk_parity, 0,
+                       {"nibble_pack": 1, "nibble_unpack": 1})}
+    out = {}
+    for path, (make, check, k, per_step) in paths.items():
+        launches, parked = [], {}
+
+        def after_step(dev, i, ef):
+            if dev == "cuda":
+                launches.append(read_all_launches(kernel_mods))
+            reset_all_launches(kernel_mods)
+            parked[dev] = ef.inflight
+
+        reset_all_launches(kernel_mods)
+        parity_phase(torch, pmods, f"staleness {path}", make, check,
+                     steps=STALE_SMALL_STEPS, start_compress_step=k,
+                     after_step=after_step, staleness="one_step")
+        gap = max((a.cpu() - b).abs().max().item() for a, b in
+                  zip(tree.leaves(parked["cuda"]), tree.leaves(parked["cpu"])))
+        want = [{name: (per_step.get(name, 0) if i >= k else 0)
+                 for name in launches[0]} for i in range(STALE_SMALL_STEPS)]
+        print(json.dumps({"check": "staleness reduced", "path": path,
+                          "start_compress_step": k,
+                          "inflight_max_abs_diff": gap,
+                          "launches_per_step": launches}), flush=True)
+        if launches != want:
+            raise AssertionError(f"staleness {path}: launches per step {launches}, "
+                                 f"want {want}")
+        out[f"reduced {path}"] = {name: sum(row[name] for row in launches)
+                                  for name in launches[0]}
+    return out
+
+
+def dist_stale(torch, mods, kernel_mods, cfg, compressors, CollectiveStats, pdist,
+               n_buckets, smi, batches):
+    """(c), inside phase 5's group: DIST_STEPS one-step steps of
+    ``make_train_step`` at full width, PowerSGD with ``max_chunk_bytes=
+    STALE_DIST_CAP`` on the pipelined transport and on the serial one,
+    and the pipelined compressor on ``SimMesh(1)``: all bit-equal, the same
+    records, and the serial schedule's ``torch.distributed`` calls.  Every
+    launch count and the calls are set to 0 just before the pipelined
+    distributed run and read just after.  Returns its launches."""
+    tree = mods[1]
+    hyper = mods[0].TrainHyper(staleness="one_step")
+    make = lambda pipeline: compressors.make_compressor(
+        "powersgd", rank=RANK, pipeline=pipeline, max_chunk_bytes=STALE_DIST_CAP)
+    runs, sim_state = {}, None
+    for name, mode, pipeline in (("sim", "sim", True), ("serial", "dist", False),
+                                 ("pipelined", "dist", True)):
+        stats = CollectiveStats()
+        reset_all_launches(kernel_mods)
+        pdist.reset_calls()
+        losses, ms, peak, params, run = dist_run(torch, mods, cfg, mode,
+                                                 make(pipeline), stats, batches,
+                                                 hyper)
+        # parameters and in-flight tree against the simulated run's, which
+        # stay on the card (12 GB) through the two distributed runs
+        state = tree.leaves(params) + tree.leaves(run["ef"].inflight)
+        del params, run
+        if sim_state is None:
+            sim_state = state
+        runs[name] = {"losses": losses, "step_ms": ms, "peak_gib": peak,
+                      "calls": dict(pdist.CALLS),
+                      "launches": read_all_launches(kernel_mods),
+                      "records": collective_records(stats),
+                      "state_equal_to_sim": all(
+                          torch.equal(x, y) for x, y in zip(state, sim_state))}
+        del state
+        torch.cuda.empty_cache()
+    del sim_state
+    torch.cuda.empty_cache()
+    pipelined, serial, sim = runs["pipelined"], runs["serial"], runs["sim"]
+    chunks = pipelined["records"][0][:len(pipelined["records"][0]) // DIST_STEPS]
+    row = {"check": "staleness dist", "card": smi, "steps": DIST_STEPS,
+           "max_chunk_bytes": STALE_DIST_CAP, "chunks_per_step": len(chunks),
+           "bit_equal_to_serial": (pipelined["losses"] == serial["losses"]
+                                   and pipelined["state_equal_to_sim"]
+                                   and serial["state_equal_to_sim"]),
+           "bit_equal_to_sim": (pipelined["losses"] == sim["losses"]
+                                and pipelined["state_equal_to_sim"]),
+           **{f"{k}_{n}": runs[n][k] for n in runs
+              for k in ("losses", "step_ms", "calls")},
+           "peak_gib_pipelined": pipelined["peak_gib"],
+           "launches": pipelined["launches"]}
+    print(json.dumps(row), flush=True)
+    problems = []
+    if not (row["bit_equal_to_serial"] and row["bit_equal_to_sim"]):
+        problems.append("the pipelined run is not the serial or the simulated one")
+    if not (pipelined["records"] == serial["records"] == sim["records"]):
+        problems.append("records differ")
+    if pipelined["calls"] != serial["calls"] or pipelined["calls"] != {
+            "all_reduce": (len(chunks) + 1) * DIST_STEPS, "all_gather": 0}:
+        problems.append(f"calls {pipelined['calls']} against the serial "
+                        f"{serial['calls']}, {len(chunks)} chunks a step")
+    if len(chunks) < 6:
+        problems.append(f"{len(chunks)} chunks a step: nothing to interleave")
+    want = {name: 0 for name in pipelined["launches"]}
+    want.update(lowrank_project=DIST_STEPS * n_buckets,
+                lowrank_backproject=DIST_STEPS * n_buckets)
+    if pipelined["launches"] != want:
+        problems.append(f"launches {pipelined['launches']}, want {want}")
+    if problems:
+        raise AssertionError(f"staleness dist: {problems}")
+    return pipelined["launches"]
+
+
+def stale_resume_phase(torch, pmods, ckpt, compressors, kernel_mods, smi):
+    """(d): reduced Llama-3-8B at W = 2 on the card, one-step: STALE_SAVE_AT
+    steps, a save (the in-flight aggregate nonzero), STALE_AFTER more; then
+    a new step and a template drawn from another seed, the restore, and the
+    same STALE_AFTER steps: losses, parameters and the in-flight tree
+    bit-equal to the straight run's.  Launches counted over all three
+    stretches.  Returns them."""
+    train, llama3_8b, SimMesh, MarkovLM, tree = pmods
+    cfg = llama3_8b.reduced_config()
+    sim = SimMesh(2)
+    hyper = train.TrainHyper(q_chunk=64, warmup_steps=2, staleness="one_step")
+    data = MarkovLM(vocab=cfg.vocab_size, seed=0, order=1)
+    batches = []
+    for i in range(STALE_SAVE_AT + STALE_AFTER):
+        toks = torch.tensor(data.sample(4, 128, step=i), device="cuda")
+        batches.append(sim.shard({"tokens": toks[:, :-1], "labels": toks[:, 1:]}))
+
+    def steps(step, params, ef, part):
+        losses = []
+        for b in part:
+            params, ef, m = step(params, ef, b)
+            losses.append(m["lm_loss"].item())
+        return params, ef, losses
+
+    reset_all_launches(kernel_mods)
+    step, init = train.make_sim_train_step(cfg, sim, hyper)
+    params, ef = init(torch.Generator("cuda").manual_seed(0))
+    params, ef, _ = steps(step, params, ef, batches[:STALE_SAVE_AT])
+    parked = any(bool(x.any()) for x in tree.leaves(ef.inflight))
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        ckpt.save_train_state(d, ckpt.TrainState(params=params, ef=ef, seed=0,
+                                                 data_step=ef.step))
+        params, ef, straight = steps(step, params, ef, batches[STALE_SAVE_AT:])
+        step2, init2 = train.make_sim_train_step(cfg, sim, hyper)
+        p0, e0 = init2(torch.Generator("cuda").manual_seed(1))
+        state, meta = ckpt.restore_train_state(d, ckpt.TrainState(params=p0, ef=e0))
+    p2, e2 = ckpt.replicate_sim(sim, state.params, state.ef)
+    p2, e2, resumed = steps(step2, p2, e2, batches[STALE_SAVE_AT:])
+    launches = read_all_launches(kernel_mods)
+    equal = (resumed == straight
+             and all(torch.equal(a, b) for t1, t2 in ((p2, params),
+                                                     (e2.inflight, ef.inflight),
+                                                     (e2.error, ef.error))
+                     for a, b in zip(tree.leaves(t1), tree.leaves(t2))))
+    print(json.dumps({"check": "staleness resume", "card": smi,
+                      "saved_at": STALE_SAVE_AT, "inflight_nonzero_at_save": parked,
+                      "meta_inflight": meta.get("inflight"),
+                      "losses_straight": straight, "losses_resumed": resumed,
+                      "bit_equal": equal, "launches": launches}), flush=True)
+    if not (equal and parked and "inflight" not in meta):
+        raise AssertionError(f"staleness resume: bit-equal {equal}, parked "
+                             f"{parked}, meta {meta.get('inflight')}")
+    return launches
+
+
 def int4_chunk(torch, cfg, model, matrixize, tree, workers, scheme="top_k"):
     """(chunk, parts, (workers, codes)): the int4 chunk ``scheme``'s gather
     packs each step on ``cfg``, the payload parts it plans from (meta
@@ -4094,6 +4468,18 @@ def main() -> None:
     print(f"checkpoint: {time.perf_counter() - t_ckpt:.1f} s ((b) and (c) "
           f"{time.perf_counter() - t_cli:.1f} s)")
 
+    # -- 17. one-step staleness -----------------------------------------------
+    t_stale = time.perf_counter()
+    stale_launches = {"llama powersgd": stale_llama_phase(
+        torch, tmods, kernel_mods, cfg, CollectiveStats, len(buckets), psgd_run,
+        peaks, smi)}
+    stale_launches.update(stale_small_phase(
+        torch, pmods, compressors, kernel_mods,
+        len(bench.model_buckets(llama3_8b.reduced_config()))))
+    stale_launches["resume"] = stale_resume_phase(torch, pmods, ckpt, compressors,
+                                                  kernel_mods, smi)
+    print(f"staleness: {time.perf_counter() - t_stale:.1f} s (and (c) in phase 5)")
+
     # launches of each kernel on every path this run drove
     paths = {"llama powersgd": psgd, "llama top_k_int4": topk,
              **{f"dist {k}": v for k, v in dist_launches.items()},
@@ -4106,7 +4492,8 @@ def main() -> None:
              **{f"warmup {k}": v for k, v in warmup_launches.items()},
              **{f"adaptive {k}": v for k, v in adaptive_launches.items()},
              **{f"orthogonalizers llama {k}": v for k, v in orth_launches.items()},
-             **tuned_launches, "checkpoint llama powersgd": ckpt_launches}
+             **tuned_launches, "checkpoint llama powersgd": ckpt_launches,
+             **{f"staleness {k}": v for k, v in stale_launches.items()}}
     by_path = lambda kernel: {p: v[kernel] for p, v in paths.items() if v[kernel]}
 
     summary = []

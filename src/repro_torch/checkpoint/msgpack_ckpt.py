@@ -315,6 +315,20 @@ def _leaves_crc(records) -> int:
     return crc
 
 
+class ZeroBytes:
+    """The ``data`` of a leaf record whose bytes are all zero, held as a
+    length only: a restore zeroes the template's tensor in place (a
+    zero-filled in-flight aggregate, built by
+    :func:`repro_torch.checkpoint.train_state.restore_train_state` without
+    a buffer of its size)."""
+
+    def __init__(self, nbytes: int):
+        self.nbytes = int(nbytes)
+
+    def __len__(self) -> int:
+        return self.nbytes
+
+
 def _fill(dst: torch.Tensor, data) -> None:
     """Copy the envelope bytes ``data`` into the contiguous tensor ``dst``
     (any device), a piece at a time."""
@@ -322,6 +336,9 @@ def _fill(dst: torch.Tensor, data) -> None:
     if len(data) != flat.numel():
         raise CheckpointError(f"{len(data)} bytes for a leaf of "
                               f"{flat.numel()}")
+    if isinstance(data, ZeroBytes):
+        flat.zero_()
+        return
     if not len(data):
         return
     if dst.device.type == "cpu":
@@ -352,7 +369,9 @@ def decode_leaf(d: dict, like=None, device="cpu"):
     token, shape = d["dtype"], tuple(d["shape"])
     if isinstance(like, (np.ndarray, np.generic)) or token not in _TOKEN_TORCH:
         data = d["data"]
-        raw = data.tobytes() if isinstance(data, codec.Blob) else bytes(data)
+        raw = (data.tobytes() if isinstance(data, codec.Blob)
+               else bytes(len(data)) if isinstance(data, ZeroBytes)
+               else bytes(data))
         return np.frombuffer(raw, dtype=np.dtype(token)).reshape(shape).copy()
     out = torch.empty(shape, dtype=_TOKEN_TORCH[token], device=device)
     _fill(out, d["data"])

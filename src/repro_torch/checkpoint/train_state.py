@@ -11,19 +11,27 @@ envelope, leaf for leaf:
     ['ef'].step, ['ef'].inflight, ['key_data'], ['params'][...]
 
 (the fields of the JAX package's ``EFState`` in declaration order).  The
-port's :class:`~repro_torch.core.error_feedback.EFState` has no
-``inflight`` (one-step staleness is ROADMAP queue A, item 12) and counts
-steps in a Python ``int``; the envelope still carries a ``none`` record for
-``['ef'].inflight`` and an int32 scalar for ``['ef'].step``.  Host scalars
-go in ``meta``: the worker count, the :class:`~repro_torch.core.powersgd.
-RankController` state and any caller extras.
+port counts steps in a Python ``int``, written as an int32 scalar at
+``['ef'].step``.  ``['ef'].inflight`` is a ``none`` record for a
+synchronous run and the in-flight aggregate of a one-step-stale run
+(``staleness="one_step"``).  Host scalars go in ``meta``: the worker
+count, the :class:`~repro_torch.core.powersgd.RankController` state and
+any caller extras.
+
+Envelopes cross between pipeline modes as in the JAX package
+(:func:`_splice_inflight`, noted in ``meta["inflight"]``): restored into a
+one-step template, an envelope without an in-flight aggregate gives
+zeros (``"zero_filled"``: one more pipeline bubble); restored into a
+synchronous template, one with an aggregate drops it (``"dropped"``); a v1
+envelope without the record restores into a synchronous template
+(``"absent"``).
 
 Canonical worker layout: what is identical on every worker (parameters,
-momentum, Q factors, step) is stored once; the per-worker error buffers
-are stacked ``(W, ...)``.  The simulated step already holds its state so
-(:func:`canonicalize_sim`); the distributed step keeps each rank's own
-buffer, which :func:`canonicalize_dist` gathers.  Restoring into another
-worker count rescales the buffers
+momentum, Q factors, step, the in-flight aggregate) is stored once; the
+per-worker error buffers are stacked ``(W, ...)``.  The simulated step
+already holds its state so (:func:`canonicalize_sim`); the distributed
+step keeps each rank's own buffer, which :func:`canonicalize_dist`
+gathers.  Restoring into another worker count rescales the buffers
 (:func:`repro_torch.core.error_feedback.rescale_error_buffers`; same-W is
 bit-exact), and the template's factors may sit at another rank than the
 checkpoint's (the checkpoint's win).
@@ -46,8 +54,8 @@ import numpy as np
 
 from repro_torch import tree
 from repro_torch.checkpoint.msgpack_ckpt import (
-    MODEL_AXIS_KEY, CheckpointError, check_model_axis, flatten_with_paths,
-    load_envelope, restore_tree, save_checkpoint)
+    MODEL_AXIS_KEY, CheckpointError, ZeroBytes, check_model_axis, dtype_token,
+    flatten_with_paths, load_envelope, restore_tree, save_checkpoint)
 from repro_torch.core import error_feedback
 from repro_torch.core.dist import DistBackend
 from repro_torch.core.error_feedback import EFState
@@ -110,7 +118,8 @@ def _as_tree(state: TrainState) -> dict:
     return {"params": state.params,
             "ef": _EFRecord(error=ef.error, momentum=ef.momentum,
                             comp=ef.comp,
-                            step=np.asarray(int(ef.step), np.int32)),
+                            step=np.asarray(int(ef.step), np.int32),
+                            inflight=ef.inflight),
             "key_data": seed_to_key_data(state.seed),
             "data_step": np.asarray(int(state.data_step), np.int32)}
 
@@ -150,27 +159,56 @@ def save_train_state(directory: str, state: TrainState, *,
                            keep=keep, meta=meta)
 
 
-def _splice_inflight(payload: dict, t_paths) -> Tuple[dict, Optional[str]]:
-    """Align the envelope with the port's template (leaf paths ``t_paths``)
-    at ``['ef'].inflight``, which is always ``None`` here: a ``none`` record
-    passes through; an envelope one record short of the template without
-    one (a v1 ``TrainState``) gains it (``"absent"``, as the JAX package
-    notes it); an in-flight aggregate of a one-step-stale run cannot be
-    taken (ROADMAP queue A, item 12)."""
-    leaves = payload["leaves"]
-    if any(str(d.get("path", "")).startswith(_INFLIGHT_PATH)
-           and d["kind"] != "none" for d in leaves):
-        raise NotImplementedError(
-            "the checkpoint carries an in-flight aggregate of a one-step "
-            "stale run; staleness='one_step' is not ported yet (ROADMAP "
-            "queue A, item 12)")
-    if (len(leaves) != len(t_paths) - 1
-            or any(d.get("path") == _INFLIGHT_PATH for d in leaves)):
+def _splice_inflight(payload: dict, t_tree) -> Tuple[dict, Optional[str]]:
+    """Align the envelope's records with the template tree ``t_tree`` at
+    ``['ef'].inflight``, so that envelopes cross between pipeline modes
+    (and versions), as the JAX package's ``_splice_inflight`` does:
+
+    * the envelope's in-flight records are the template's: they pass
+      through (note ``None``; the restore is bit-exact);
+    * the template has an in-flight tree the envelope lacks (a
+      synchronous or v1 envelope into a one-step template): zero records,
+      whose bytes are not built (:class:`ZeroBytes`) — the restore zeroes
+      the template's tensors (``"zero_filled"``);
+    * the envelope has an in-flight tree the template has no room for: its
+      records are dropped, never read (``"dropped"``);
+    * a v1 envelope without the record, into a synchronous template: the
+      ``none`` record is added (``"absent"``).
+
+    Returns ``(payload, note)``; a mismatch outside ``['ef'].inflight``
+    passes through for :func:`restore_tree` to report."""
+    t_pairs = flatten_with_paths(t_tree)
+    t_paths = [p for p, _ in t_pairs]
+    enc = payload["leaves"]
+
+    def is_inflight(path):
+        return (path or "").startswith(_INFLIGHT_PATH)
+
+    enc_inflight = {d.get("path"): d for d in enc if is_inflight(d.get("path"))}
+    if set(enc_inflight) == {p for p in t_paths if is_inflight(p)}:
         return payload, None
-    at = t_paths.index(_INFLIGHT_PATH)
-    spliced = leaves[:at] + [{"kind": "none", "path": _INFLIGHT_PATH}] + \
-        leaves[at:]
-    return {**payload, "leaves": spliced}, "absent"
+    others = [d for d in enc if not is_inflight(d.get("path"))]
+    if len(others) != sum(1 for p in t_paths if not is_inflight(p)):
+        return payload, None
+    others = iter(others)
+    spliced, zero_filled = [], False
+    for path, want in t_pairs:
+        if not is_inflight(path):
+            spliced.append(next(others))
+        elif path in enc_inflight:
+            spliced.append(enc_inflight[path])
+        elif want is None:
+            spliced.append({"kind": "none", "path": path})
+        else:
+            zero_filled = True
+            spliced.append({"kind": "array", "dtype": dtype_token(want),
+                            "shape": [int(n) for n in want.shape],
+                            "data": ZeroBytes(want.numel() * want.element_size()),
+                            "path": path})
+    dropped = bool(set(enc_inflight) - set(t_paths))
+    note = ("zero_filled" if zero_filled
+            else "dropped" if dropped else "absent")
+    return {**payload, "leaves": spliced}, note
 
 
 def restore_train_state(directory: str, template: TrainState,
@@ -205,8 +243,7 @@ def restore_train_state(directory: str, template: TrainState,
         return False
 
     t_tree = _as_tree(template)
-    payload, inflight_note = _splice_inflight(
-        payload, [p for p, _ in flatten_with_paths(t_tree)])
+    payload, inflight_note = _splice_inflight(payload, t_tree)
     if inflight_note:
         meta["inflight"] = inflight_note
     restored = restore_tree(payload, t_tree, shape_ok=shape_ok)
@@ -219,7 +256,7 @@ def restore_train_state(directory: str, template: TrainState,
             "path": error_feedback.rescale_path(w_old, w_new)}
         error = error_feedback.rescale_error_buffers(error, w_new)
     ef = EFState(error=error, momentum=rec.momentum, comp=rec.comp,
-                 step=int(rec.step))
+                 step=int(rec.step), inflight=rec.inflight)
     state = TrainState(
         params=restored["params"], ef=ef,
         seed=seed_from_key_data(restored["key_data"],
@@ -235,8 +272,9 @@ def restore_train_state(directory: str, template: TrainState,
 def canonicalize_sim(sim, params, ef: EFState) -> Tuple[Any, EFState]:
     """A :class:`~repro_torch.core.simmesh.SimMesh` run's state in the
     canonical layout: the port's simulated step already holds parameters,
-    momentum and factors once and the error buffers stacked ``(W, ...)``,
-    so this checks the worker dim and passes the state through."""
+    momentum, factors and the in-flight aggregate once and the error
+    buffers stacked ``(W, ...)``, so this checks the worker dim and passes
+    the state through."""
     w = _error_workers(ef)
     if w is not None and w != sim.workers:
         raise ValueError(f"error buffers carry {w} workers, the mesh has "
@@ -246,7 +284,8 @@ def canonicalize_sim(sim, params, ef: EFState) -> Tuple[Any, EFState]:
 
 def replicate_sim(sim, params, ef: EFState) -> Tuple[Any, EFState]:
     """The canonical state onto ``sim``, which may have another worker
-    count than the state was saved at: the error buffers are rescaled."""
+    count than the state was saved at: the error buffers are rescaled,
+    the rest (held once) passes through."""
     return params, dataclasses.replace(
         ef, error=error_feedback.rescale_error_buffers(ef.error, sim.workers))
 
@@ -256,8 +295,10 @@ def canonicalize_dist(params, ef: EFState, group=None
     """A distributed run's state (each rank's own error buffer, no worker
     dim) in the canonical layout: every rank's buffers gathered into
     ``(W, ...)`` stacks in rank order, the counterpart of the JAX
-    package's global error arrays.  A collective: every rank of ``group``
-    calls it (rank 0 then writes the envelope)."""
+    package's global error arrays; parameters, momentum, factors and the
+    in-flight aggregate, identical on every rank, pass through.  A
+    collective: every rank of ``group`` calls it (rank 0 then writes the
+    envelope)."""
     backend = DistBackend(group)
     return params, dataclasses.replace(
         ef, error=tree.map(backend.all_gather, ef.error))
@@ -266,7 +307,8 @@ def canonicalize_dist(params, ef: EFState, group=None
 def replicate_dist(params, ef: EFState, group=None) -> Tuple[Any, EFState]:
     """The canonical state onto this rank of ``group``: the error buffers
     rescaled to the group's size (if it differs from the saved worker
-    count) and this rank's row taken, in storage of its own."""
+    count) and this rank's row taken, in storage of its own; the rest
+    passes through."""
     import torch.distributed as tdist
 
     rank, world = tdist.get_rank(group), tdist.get_world_size(group)

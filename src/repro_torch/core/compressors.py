@@ -197,7 +197,10 @@ class PowerSGDCompressor(Compressor):
 
     ``rank_schedule`` (any form :func:`powersgd.parse_schedule` takes) sets
     the initial rank to the schedule's, and a residual schedule turns
-    ``track_residual`` on; :meth:`controller` drives it between steps."""
+    ``track_residual`` on; :meth:`controller` drives it between steps.
+    ``pipeline=True`` runs the bucketed engine's reduces on
+    :class:`~repro_torch.core.engine.PipelinedTransport` (bit for bit the
+    same; the per-leaf path ignores it)."""
 
     name = "powersgd"
 
@@ -205,7 +208,7 @@ class PowerSGDCompressor(Compressor):
                  num_iters=1, error_mode="global", bucketing="auto",
                  bucket_pad_tolerance=0.25, wire_dtype="auto",
                  max_chunk_bytes=None, rank_schedule=None,
-                 track_residual=False):
+                 track_residual=False, pipeline=False):
         super().__init__(
             transport="per_leaf" if bucketing == "off" else "fused",
             wire_dtype=wire_dtype, max_chunk_bytes=max_chunk_bytes)
@@ -218,7 +221,8 @@ class PowerSGDCompressor(Compressor):
             rank=rank, orthogonalizer=orthogonalizer, warm_start=warm_start,
             num_iters=num_iters, error_mode=error_mode, bucketing=bucketing,
             bucket_pad_tolerance=bucket_pad_tolerance, wire_dtype=wire_dtype,
-            max_chunk_bytes=max_chunk_bytes, track_residual=track_residual)
+            max_chunk_bytes=max_chunk_bytes, track_residual=track_residual,
+            pipeline=pipeline)
         if num_iters > 1:
             self.name = f"powersgd_best_approx_{num_iters}it"
         elif not warm_start:

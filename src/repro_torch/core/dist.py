@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as tdist
@@ -247,6 +247,20 @@ class DistBackend:
         CALLS["all_reduce"] += 1
         return buf
 
+    def pmean_issue(self, x: torch.Tensor) -> Callable[[], torch.Tensor]:
+        """:meth:`pmean` in two halves: the ``all_reduce`` of a copy is
+        issued now (``async_op=True``, counted in :data:`CALLS` now), and
+        the returned function waits on it and divides, giving
+        :meth:`pmean`'s bits."""
+        buf = x.clone(memory_format=torch.contiguous_format)
+        work = tdist.all_reduce(buf, group=self.group, async_op=True)
+        CALLS["all_reduce"] += 1
+
+        def wait() -> torch.Tensor:
+            work.wait()
+            return buf.div_(self.workers)
+        return wait
+
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every worker's ``x``, stacked in rank order: ``(W,) + x.shape``."""
         out = x.new_empty(self.workers * x.numel())
@@ -321,7 +335,8 @@ class MeshCtx:
 
     def pmean_flat(self, parts: Sequence[torch.Tensor], *,
                    wire_dtype: str = "auto",
-                   max_chunk_bytes: Optional[int] = None) -> List[torch.Tensor]:
+                   max_chunk_bytes: Optional[int] = None,
+                   interleave: bool = False) -> List[torch.Tensor]:
         """Fused all-reduce-mean: one collective per wire chunk for a whole
         list of per-worker tensors (see :func:`matrixize.plan_flat` for the
         chunking policy).  Elementwise, so numerically the same as one
@@ -333,23 +348,48 @@ class MeshCtx:
         wire cost.  That record models the reference's wire, not what
         :class:`DistBackend` sends: its all-reduce moves the float32 result,
         4x the recorded bytes of an int8 chunk and 8x those of an int4
-        chunk."""
+        chunk.
+
+        ``interleave=True`` is the double-buffered schedule: the reduce of
+        chunk b is issued before chunk b−1 is unpacked.  Under
+        :class:`DistBackend` the reduce is an asynchronous ``all_reduce``
+        (:meth:`DistBackend.pmean_issue`), waited on just before its chunk
+        is unpacked; :class:`SimBackend` reduces at issue.  Chunks, bytes,
+        reduction order, the records (made at issue) and the
+        ``torch.distributed`` calls are the serial schedule's, so the
+        result is bit for bit the same."""
         parts = list(parts)
         if not parts:
             return []
         nl = len(self.lead)
         plan = matrixize.plan_flat(parts, wire_dtype=wire_dtype,
                                    max_chunk_bytes=max_chunk_bytes, lead=nl)
-        out: dict = {}
-        for chunk in plan.chunks:
+
+        def issue(chunk) -> Callable[[], torch.Tensor]:
             if chunk.quant is not None:
                 buf = matrixize.quant_dequant_flat(chunk, parts, lead=nl)
             else:
                 buf = matrixize.pack_flat(chunk, parts, lead=nl)
             self._record_chunk(chunk, "reduce")
-            if self.data_axes:
-                buf = self.backend.pmean(buf)
-            out.update(matrixize.unpack_flat(chunk, buf))
+            if not self.data_axes:
+                return lambda: buf
+            if interleave and isinstance(self.backend, DistBackend):
+                return self.backend.pmean_issue(buf)
+            buf = self.backend.pmean(buf)
+            return lambda: buf
+
+        out: dict = {}
+        pending = None   # the chunk in flight and its result
+        for chunk in plan.chunks:
+            result = issue(chunk)
+            if not interleave:
+                out.update(matrixize.unpack_flat(chunk, result()))
+                continue
+            if pending is not None:
+                out.update(matrixize.unpack_flat(pending[0], pending[1]()))
+            pending = (chunk, result)
+        if pending is not None:
+            out.update(matrixize.unpack_flat(pending[0], pending[1]()))
         return [out[i] for i in range(len(parts))]
 
     def allgather_flat(self, parts: Sequence[torch.Tensor], *,

@@ -3,7 +3,8 @@
 
 * :class:`Transport` — the fused all-reduce and all-gather bound to a
   context and a wire policy, and the receiver-side mean over gathered
-  decodes.
+  decodes; :class:`PipelinedTransport`, its double-buffered form for the
+  one-step-stale pipeline.
 * :class:`MatrixPayloads` — a tree's compressed leaves as zero-padded
   ``(B, n, m)`` bucket slabs, and the scatter of results back to the tree.
 * :func:`run_step` — the generic step of single-round schemes (the whole
@@ -24,8 +25,7 @@ and ``decode_leaf(enc, payload, lead)`` rebuilds ``lead + shape`` from
 payloads that carry ``lead`` (the worker's own payload, or the gathered
 ``(W,)`` stack).  Under a ``torch.distributed`` context ``lead`` is ``()``.
 
-Not ported yet: ``StatePartition`` (ROADMAP queue A, item 14) and
-``PipelinedTransport`` (ROADMAP queue A, item 12).
+Not ported yet: ``StatePartition`` (ROADMAP queue A, item 14).
 """
 
 from __future__ import annotations
@@ -129,6 +129,42 @@ class Transport:
         if weights is None:
             return stacked.mean(dim=0)
         return dist.stacked_weighted_mean(stacked, weights, in_place=True)
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelinedTransport(Transport):
+    """The double-buffered :class:`Transport`, the engine half of the
+    one-step-stale pipeline (``staleness="one_step"``), bit for bit the
+    serial transport:
+
+    * within a step, :meth:`reduce_mean` runs the interleaved chunk
+      schedule (``MeshCtx.pmean_flat(interleave=True)``): chunk b's reduce
+      is issued before chunk b−1 is unpacked, with the serial schedule's
+      chunks, bytes, reduction order and records;
+    * across steps, :meth:`shift` rotates the double buffer: this step's
+      fresh aggregate in, the one to apply now (step t−1's) out.  The
+      in-flight tree is explicit state (``EFState.inflight``), so a
+      checkpoint carries it.
+    """
+
+    def reduce_mean(self, parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        return self.ctx.pmean_flat(parts, wire_dtype=self.wire_dtype,
+                                   max_chunk_bytes=self.max_chunk_bytes,
+                                   interleave=True)
+
+    @staticmethod
+    def shift(fresh, inflight):
+        """``(apply_now, new_inflight)`` = ``(inflight, fresh)``: structure
+        only.  The step that runs in place parks ``fresh`` by copying it
+        into the in-flight tree's own storage
+        (:func:`repro_torch.core.error_feedback.apply_updates`)."""
+        return inflight, fresh
+
+    @staticmethod
+    def init_inflight(params):
+        """The step-0 in-flight tree: zeros shaped like ``params``, on their
+        device (the pipeline bubble applies no update)."""
+        return tree.map(torch.zeros_like, params)
 
 
 def collect_leaves(deltas, state, specs) -> list:

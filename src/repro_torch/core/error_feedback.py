@@ -32,11 +32,20 @@ records the dense reduce and the compressor's collectives together.  The
 port records what each step ran: the dense reduce while ``step < k``, the
 compressor's collectives afterwards.
 
+``staleness="one_step"`` is the delayed-parameter-update pipeline: step t
+applies the aggregate of step t−1 (``EFState.inflight``) and parks its own
+for step t+1, so the collectives that produce Δ'ₜ never sit between the
+gradient and the parameter write of the same step.  Step 0 applies zeros
+(the pipeline bubble); the error buffers follow the synchronous rule.  The
+port updates in place, where the JAX package's ``shift`` is pure
+structure: the fresh aggregate may share storage with Δ (a part alone in
+its wire chunk without data axes, a dense step's aggregate), which the
+step then turns into the error buffer, so the aggregate is copied into the
+in-flight tree's own storage after the apply has read the old one.
+
 Elastic rescaling of the per-worker error buffers to another worker count
 (:func:`rescale_error_buffers`) and the rank-transition hook
 (:func:`replace_comp`) are ported beside the step.
-
-Not ported yet: ``staleness="one_step"`` (ROADMAP queue A, item 12).
 """
 
 from __future__ import annotations
@@ -62,6 +71,9 @@ class EFState:
     momentum: Any    # post-compression momentum m (tree like params)
     comp: Any        # compressor state (PowerSGD Q factors; None if stateless)
     step: int = 0
+    # staleness="one_step" only: the aggregate Δ'ₜ₋₁ of the previous step,
+    # not yet applied (tree like params, held once); None when synchronous
+    inflight: Any = None
 
     def to(self, device) -> "EFState":
         """A copy of this state on ``device``."""
@@ -69,20 +81,25 @@ class EFState:
             lambda x: None if x is None else x.to(device, copy=True), t)
         return dataclasses.replace(self, error=move(self.error),
                                    momentum=move(self.momentum),
-                                   comp=move(self.comp))
+                                   comp=move(self.comp),
+                                   inflight=move(self.inflight))
 
 
 def init_state(compressor: Compressor, params, specs, *, lead=(),
-               generator: Optional[torch.Generator] = None) -> EFState:
+               generator: Optional[torch.Generator] = None,
+               staleness: str = "none") -> EFState:
     """Zero error buffers (with ``lead`` worker dims) and momentum, fresh
-    compressor state."""
+    compressor state; under ``staleness="one_step"`` a zero in-flight
+    aggregate shaped like ``params``."""
     return EFState(
         error=tree.map(lambda p: torch.zeros(tuple(lead) + tuple(p.shape),
                                              dtype=p.dtype, device=p.device),
                        params),
         momentum=tree.map(torch.zeros_like, params),
         comp=compressor.init(params, specs, generator),
-        step=0)
+        step=0,
+        inflight=(engine.PipelinedTransport.init_inflight(params)
+                  if staleness == "one_step" else None))
 
 
 def rescale_path(w_old: int, w_new: int) -> str:
@@ -157,6 +174,11 @@ def apply_updates(compressor: Compressor, params, grads, state: EFState,
                   start_compress_step: int = 0, staleness: str = "none"):
     """One EF-SGD step.  Returns ``(params, new_state, aux)``.
 
+    ``staleness="one_step"`` applies ``state.inflight`` (step t−1's
+    aggregate) instead of this step's, and parks this step's aggregate in
+    ``new_state.inflight`` (the same tensors as ``state.inflight``,
+    overwritten after the apply); see the module docstring.
+
     ``seed`` is the run's base seed for shared-seed draws: the compressor
     gets ``engine.step_seed(seed, state.step)``, the twin of the JAX
     package's ``fold_in(key, state.step)``.
@@ -171,10 +193,13 @@ def apply_updates(compressor: Compressor, params, grads, state: EFState,
     ``bits_per_worker`` and the compressor's metrics (with ``ctx.lead``
     worker dims), the latter only where ``start_compress_step`` is 0.
     """
-    if staleness != "none":
-        raise NotImplementedError(
-            f"staleness={staleness!r} is not ported yet (ROADMAP queue A, "
-            f"item 12)")
+    if staleness not in ("none", "one_step"):
+        raise ValueError(f"unknown staleness mode {staleness!r}")
+    stale = staleness == "one_step"
+    if stale and state.inflight is None:
+        raise ValueError(
+            "staleness='one_step' needs EFState.inflight initialized "
+            "(init_state(..., staleness='one_step'))")
     with torch.no_grad():
         for g, p, spec in zip(tree.leaves(grads), tree.leaves(params),
                               tree.leaves(specs)):
@@ -188,14 +213,24 @@ def apply_updates(compressor: Compressor, params, grads, state: EFState,
             out = compressor.step(
                 deltas, state.comp, specs, ctx=ctx,
                 seed=None if seed is None else engine.step_seed(seed, state.step))
+        applied, fresh = (engine.PipelinedTransport.shift(out.agg,
+                                                          state.inflight)
+                          if stale else (out.agg, None))
         params, new_momentum = ops.ef_apply_tree(
-            params, out.agg, state.momentum, lr=lr, momentum=momentum)
+            params, applied, state.momentum, lr=lr, momentum=momentum)
+        if stale:
+            # park Δ'ₜ in the in-flight tree's own storage, now that the
+            # apply has read Δ'ₜ₋₁ from it
+            for buf, agg in zip(tree.leaves(state.inflight),
+                                tree.leaves(fresh)):
+                buf.copy_(agg)
         # e_w = Δ_w − recon, in the same buffers.  Last: without data axes
         # an uncompressed leaf's aggregate may be a view of its Δ.  A dense
         # step's recon is Δ itself: Δ − Δ, so a non-finite Δ stays so.
         new_error = tree.map(lambda d, rc: d.sub_(rc), deltas, out.recon)
     new_state = EFState(error=new_error, momentum=new_momentum,
-                        comp=out.state, step=state.step + 1)
+                        comp=out.state, step=state.step + 1,
+                        inflight=state.inflight)
     aux = {"bits_per_worker": out.bits_per_worker}
     # the compressor's observability (PowerSGD's residual ratios under
     # track_residual).  As in the JAX package, a run with a dense warm-up

@@ -72,6 +72,9 @@ class PowerSGDConfig:
     wire_dtype: str = "auto"               # fused-collective wire policy
     max_chunk_bytes: Optional[int] = None  # cap per fused wire buffer
     track_residual: bool = False           # CompressOut.metrics: ‖M − P̂Qᵀ‖/‖M‖
+    pipeline: bool = False                 # engine.PipelinedTransport: issue
+    #                                        chunk b's reduce before unpacking
+    #                                        b−1 (bit-identical; bucketed path)
 
     def __post_init__(self):
         if self.bucketing not in ("auto", "on", "off"):
@@ -408,8 +411,10 @@ def compress_aggregate(cfg: PowerSGDConfig, deltas, state, specs,
         deltas, state, specs, dtype=cfg.dtype,
         tolerance=cfg.bucket_pad_tolerance, lead=ctx.lead,
         resample=None if cfg.warm_start else draw)
-    transport = engine.Transport(ctx=ctx, wire_dtype=cfg.wire_dtype,
-                                 max_chunk_bytes=cfg.max_chunk_bytes)
+    transport_cls = (engine.PipelinedTransport if cfg.pipeline
+                     else engine.Transport)
+    transport = transport_cls(ctx=ctx, wire_dtype=cfg.wire_dtype,
+                              max_chunk_bytes=cfg.max_chunk_bytes)
     m_bufs, q_bufs = payloads.m_bufs, payloads.q_bufs
 
     unc_agg = payloads.unc_values

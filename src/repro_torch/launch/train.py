@@ -12,7 +12,10 @@
 
 Both take :class:`TrainHyper`; ``start_compress_step=k`` runs the first k
 steps dense (one fused all-reduce of the whole gradient, error buffers
-held at zero) before the compressor takes over, as
+held at zero) before the compressor takes over, and
+``staleness="one_step"`` applies each step's aggregate one step late (the
+in-flight tree in ``EFState.inflight``, the default compressor on the
+double-buffered transport), as
 :func:`repro_torch.core.error_feedback.apply_updates` describes.
 
 ``rank_schedule`` and ``track_residual`` pass to the default PowerSGD
@@ -82,6 +85,10 @@ class TrainHyper:
     #   driven by the host loop: a RankController from the compressor
     #   transitions ef.comp between steps
     track_residual: bool = False    # residual_ratio in the step's metrics
+    staleness: str = "none"         # "one_step" = delayed-parameter-update
+    #   pipeline: apply step t−1's aggregate while step t's is formed, the
+    #   in-flight aggregate carried in EFState.inflight and the default
+    #   compressor on the double-buffered PipelinedTransport
 
 
 def _schedule(hyper: TrainHyper, step: int) -> float:
@@ -139,7 +146,8 @@ def _default_compressor(hyper: TrainHyper) -> Compressor:
                               bucketing=hyper.bucketing,
                               wire_dtype=hyper.wire_dtype,
                               rank_schedule=hyper.rank_schedule,
-                              track_residual=hyper.track_residual)
+                              track_residual=hyper.track_residual,
+                              pipeline=hyper.staleness == "one_step")
 
 
 def _make_step(cfg: ModelConfig, hyper: TrainHyper,
@@ -161,7 +169,8 @@ def _make_step(cfg: ModelConfig, hyper: TrainHyper,
         params, ef_state, aux = error_feedback.apply_updates(
             compressor, params, grads, ef_state, mspec_tree, lr=lr,
             momentum=hyper.momentum, weight_decay=hyper.weight_decay, ctx=ctx,
-            seed=seed, start_compress_step=hyper.start_compress_step)
+            seed=seed, start_compress_step=hyper.start_compress_step,
+            staleness=hyper.staleness)
         metrics = {"lm_loss": loss, "lr": lr,
                    "bits_per_worker": aux["bits_per_worker"]}
         if "residual_ratio" in aux:   # what a host-side RankController reads
@@ -171,7 +180,8 @@ def _make_step(cfg: ModelConfig, hyper: TrainHyper,
     def init_state(generator: Optional[torch.Generator] = None):
         params = model.init(cfg, generator, device=dev)
         return params, error_feedback.init_state(
-            compressor, params, mspec_tree, lead=lead, generator=generator)
+            compressor, params, mspec_tree, lead=lead, generator=generator,
+            staleness=hyper.staleness)
 
     return step_fn, init_state
 
@@ -202,7 +212,8 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper,
 
     ``init_state(generator)`` → ``(params, ef_state)``: random parameters
     (and PowerSGD factors) drawn from ``generator``, zero error buffers and
-    momentum.  Every worker must pass a generator with the same seed, so
+    momentum (and in-flight aggregate, under ``staleness="one_step"``).
+    Every worker must pass a generator with the same seed, so
     that all start from the same parameters and factors.
     """
     dev = resolve_device(device)
@@ -253,7 +264,8 @@ def make_sim_train_step(cfg: ModelConfig, sim, hyper: TrainHyper,
 
     ``init_state(generator)`` → ``(params, ef_state)``: random parameters
     (and PowerSGD factors) drawn from ``generator``, zero error buffers and
-    momentum.
+    momentum (and in-flight aggregate, held once, under
+    ``staleness="one_step"``).
     """
     dev = resolve_device(device)
     w = sim.workers
@@ -317,7 +329,7 @@ def main(argv=None) -> None:
     process group (or a one-rank group), on ``--device`` (the card unless
     told otherwise).  Flags, printed lines, checkpoints and resume guards
     are the JAX package's; ``--sync-mode broadcast`` waits for ROADMAP queue
-    A, item 13 and ``--staleness one_step`` for item 12."""
+    A, item 13."""
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
     ap.add_argument("--arch", default="llama3-8b")
     ap.add_argument("--steps", type=int, default=100)
@@ -341,8 +353,10 @@ def main(argv=None) -> None:
                          "quantize float payloads symmetrically per slot")
     ap.add_argument("--staleness", default="none",
                     choices=("none", "one_step"),
-                    help="'one_step' (the delayed-update pipeline) is not "
-                         "ported yet (ROADMAP queue A, item 12)")
+                    help="'one_step' turns on the delayed-parameter-update "
+                         "pipeline: apply step t-1's aggregated compressed "
+                         "update while step t's gradients are computed "
+                         "(error feedback absorbs the delay)")
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; each torchrun process takes "
@@ -368,10 +382,6 @@ def main(argv=None) -> None:
         raise NotImplementedError(
             f"--sync-mode {args.sync_mode!r} is not ported yet (ROADMAP "
             f"queue A, item 13)")
-    if args.staleness != "none":
-        raise NotImplementedError(
-            f"--staleness {args.staleness!r} is not ported yet (ROADMAP "
-            f"queue A, item 12)")
 
     cfg = get_config(args.arch, reduced=True)
     dev = resolve_device(args.device)
@@ -395,10 +405,10 @@ def _train(args, cfg, dev) -> None:
     say = print if rank == 0 else (lambda *a, **k: None)
     hyper = TrainHyper(lr=args.lr, rank=args.rank, q_chunk=64,
                        warmup_steps=20, rank_schedule=args.rank_schedule,
-                       wire_dtype=args.wire_dtype)
+                       wire_dtype=args.wire_dtype, staleness=args.staleness)
     compressor = PowerSGDCompressor(
         rank=args.rank, rank_schedule=args.rank_schedule,
-        wire_dtype=args.wire_dtype)
+        wire_dtype=args.wire_dtype, pipeline=args.staleness == "one_step")
     step_fn, init_state = make_train_step(cfg, hyper, compressor=compressor,
                                           device=dev)
     controller = (compressor.controller()

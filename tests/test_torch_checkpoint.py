@@ -485,17 +485,28 @@ def test_model_axis_guard_names_both_sizes(tmp_path):
 
 
 def test_in_flight_aggregate_is_not_taken(tmp_path):
-    """A one-step-stale envelope (arrays under ``['ef'].inflight``) raises
-    naming ROADMAP queue A, item 12; one without the record (v1) restores
-    with ``meta["inflight"] == "absent"``."""
+    """The JAX package's one-step envelope (arrays under
+    ``['ef'].inflight``) restores into a one-step template bit for bit, no
+    splice noted, and into a synchronous template with its aggregate
+    dropped (``meta["inflight"] == "dropped"``); one without the record
+    (v1) restores with ``meta["inflight"] == "absent"``."""
     st = _jax_train_state()
+    inflight = jnp.arange(6.0) * 0.25 - 0.5
     st = jckpt.TrainState(params=st.params, ef=JEFState(
         error=st.ef.error, momentum=st.ef.momentum, comp=st.ef.comp,
-        step=st.ef.step, inflight={"w": jnp.ones(6)}), key=st.key,
+        step=st.ef.step, inflight={"w": inflight}), key=st.key,
         data_step=st.data_step)
     jckpt.save_train_state(str(tmp_path / "stale"), st)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ckpt.restore_train_state(str(tmp_path / "stale"), _train_state())
+    template = _train_state()
+    template.ef.inflight = {"w": torch.full((6,), 7.0)}
+    slot = template.ef.inflight["w"]
+    restored, meta = ckpt.restore_train_state(str(tmp_path / "stale"), template)
+    assert "inflight" not in meta and restored.ef.inflight["w"] is slot
+    np.testing.assert_array_equal(slot.numpy(), np.asarray(inflight))
+    restored, meta = ckpt.restore_train_state(str(tmp_path / "stale"),
+                                              _train_state())
+    assert meta["inflight"] == "dropped" and restored.ef.inflight is None
+    assert torch.equal(restored.params["w"], torch.full((6,), 2.0))
     path = ckpt.save_train_state(str(tmp_path / "v1"), _train_state())
     payload = _payload(path)
     payload["leaves"] = [d for d in payload["leaves"]
@@ -505,6 +516,31 @@ def test_in_flight_aggregate_is_not_taken(tmp_path):
         f.write(msgpack.packb(payload, use_bin_type=True))
     restored, meta = ckpt.restore_train_state(str(tmp_path / "v1"), _train_state())
     assert meta["inflight"] == "absent" and restored.ef.step == 4
+
+
+def test_zero_fill_builds_no_buffer(tmp_path):
+    """A synchronous envelope restored into a one-step template: the
+    spliced in-flight records carry their length only
+    (``msgpack_ckpt.ZeroBytes``), and the template's own tensor is zeroed
+    in place (``meta["inflight"] == "zero_filled"``), as the JAX package's
+    restore zero-fills it."""
+    from repro_torch.checkpoint import train_state
+
+    ckpt.save_train_state(str(tmp_path), _train_state())
+    template = _train_state()
+    template.ef.inflight = {"w": torch.full((6,), 7.0)}
+    slot = template.ef.inflight["w"]
+    payload, note = train_state._splice_inflight(
+        ckpt.load_envelope(str(tmp_path)), train_state._as_tree(template))
+    zeros = [d for d in payload["leaves"]
+             if d["path"].startswith("['ef'].inflight")]
+    assert note == "zero_filled" and len(zeros) == 1
+    assert isinstance(zeros[0]["data"], msgpack_ckpt.ZeroBytes)
+    assert len(zeros[0]["data"]) == 6 * 4
+    restored, meta = ckpt.restore_train_state(str(tmp_path), template)
+    assert meta["inflight"] == "zero_filled"
+    assert restored.ef.inflight["w"] is slot and not slot.any()
+    assert torch.equal(restored.ef.momentum["w"], torch.ones(6))
 
 
 def test_controller_state_dict_crosses_both_ways():

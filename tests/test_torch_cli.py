@@ -10,12 +10,16 @@ gloo group made by ``main`` itself.
   it: ``--ckpt-every`` or ``--resume`` without ``--ckpt-dir``, and a
   checkpoint of another rank schedule, staleness, wire dtype or data
   cursor.
-* ``--staleness one_step`` and ``--sync-mode broadcast`` raise naming
-  ROADMAP queue A, items 12 and 13; an architecture other than Llama-3-8B
-  raises as ``get_config`` does (item 15).
+* ``--staleness one_step`` trains (the case keeps its id, ``item 12``);
+  ``--sync-mode broadcast`` raises naming ROADMAP queue A, item 13; an
+  architecture other than Llama-3-8B raises as ``get_config`` does (item
+  15).
+* ``--staleness one_step`` stopped and resumed ends on the straight run's
+  ``hex=``, the envelope carrying the in-flight aggregate.
 * Across packages: the JAX package's CLI (a process of its own, one CPU
-  device) writes an envelope at step 4 and runs on to 6; the port's CLI
-  resumes the step-4 envelope to 6 and ends within the tolerances of
+  device) writes an envelope at step 4 and runs on to 6, synchronous and
+  under ``--staleness one_step`` (the two processes at once); the port's
+  CLI resumes each step-4 envelope to 6 and ends within the tolerances of
   ``tests/test_torch_train.py`` (loss rtol 1e-5, parameters atol 2e-6).
 """
 
@@ -176,26 +180,69 @@ def test_resume_guard_refuses(envelope, tmp_path, capsys, guard):
     (["--staleness", "one_step"], "item 12"),
     (["--sync-mode", "broadcast"], "item 13"),
     (["--arch", "mamba2_1p3b"], "item 15")], ids=["item 12", "item 13", "item 15"])
-def test_unported_options_raise(argv, item):
+def test_unported_options_raise(capsys, argv, item):
+    """Items 13 and 15 raise naming their item; item 12, one-step
+    staleness, is ported: one step trains and ``main`` returns."""
+    if item == "item 12":
+        out = cli(capsys, "--steps", "1", *argv)
+        assert "step    0 loss=" in out and final_hex(out)
+        return
     with pytest.raises(NotImplementedError, match=item):
         train.main([*SMALL, "--steps", "1", *argv])
     assert not tdist.is_initialized()
 
 
+def test_one_step_resume_ends_on_the_same_hex(tmp_path, capsys):
+    stale = ["--staleness", "one_step"]
+    straight = cli(capsys, "--steps", "6", "--ckpt-dir", str(tmp_path / "a"), *stale)
+    cli(capsys, "--steps", "3", "--ckpt-dir", str(tmp_path / "b"), *stale)
+    payload = msgpack.unpackb(open(tmp_path / "b" / "ckpt_0000000003.msgpack",
+                                   "rb").read(), raw=False)
+    assert payload["meta"]["staleness"] == "one_step"
+    parked = [np.frombuffer(d["data"], "<f4") for d in payload["leaves"]
+              if d["path"].startswith("['ef'].inflight")]
+    assert len(parked) > 1 and any(np.abs(x).max() > 0 for x in parked)
+    tail = cli(capsys, "--steps", "6", "--ckpt-dir", str(tmp_path / "b"),
+               "--resume", *stale)
+    assert "resumed from step 3" in tail
+    assert final_hex(tail) == final_hex(straight)
+
+
+REFERENCE_RUNS = {"none": [], "one_step": ["--staleness", "one_step"]}
+
+
 @pytest.fixture(scope="module")
-def reference_cli(tmp_path_factory):
-    """The JAX package's CLI in a process of its own on one CPU device: 6
-    steps, an envelope at step 4 and at step 6."""
-    directory = str(tmp_path_factory.mktemp("ref_cli"))
+def reference_clis(tmp_path_factory):
+    """The JAX package's CLI in processes of its own on one CPU device,
+    synchronous and one-step at once: 6 steps each, an envelope at step 4
+    and at step 6.  {mode: (directory, standard output)}."""
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
     env.update(JAX_PLATFORMS="cpu", PYTHONPATH=os.path.join(ROOT, "src"))
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro.launch.train", "--steps", "6",
-         "--batch", "4", "--seq", "32", "--ckpt-dir", directory,
-         "--ckpt-every", "4"], cwd=ROOT, env=env, capture_output=True,
-        text=True, timeout=300, check=False)
-    assert proc.returncode == 0, proc.stdout + proc.stderr
-    return directory, proc.stdout
+    procs = {}
+    for mode, extra in REFERENCE_RUNS.items():
+        directory = str(tmp_path_factory.mktemp(f"ref_cli_{mode}"))
+        procs[mode] = (directory, subprocess.Popen(
+            [sys.executable, "-m", "repro.launch.train", "--steps", "6",
+             "--batch", "4", "--seq", "32", "--ckpt-dir", directory,
+             "--ckpt-every", "4", *extra], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    out = {}
+    try:
+        for mode, (directory, proc) in procs.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            assert proc.returncode == 0, stdout + stderr
+            out[mode] = (directory, stdout)
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return out
+
+
+@pytest.fixture(scope="module")
+def reference_cli(reference_clis):
+    return reference_clis["none"]
 
 
 def params_of(path):
@@ -211,6 +258,28 @@ def test_reference_cli_envelope_resumes_in_the_port_cli(reference_cli, tmp_path,
     mine.mkdir()
     shutil.copy(os.path.join(directory, "ckpt_0000000004.msgpack"), mine)
     tail = cli(capsys, "--steps", "6", "--ckpt-dir", str(mine), "--resume")
+    assert "resumed from step 4" in tail
+    np.testing.assert_allclose(float.fromhex(final_hex(tail)),
+                               float.fromhex(final_hex(out)), rtol=1e-5)
+    want = params_of(os.path.join(directory, "ckpt_0000000006.msgpack"))
+    got = params_of(str(mine / "ckpt_0000000006.msgpack"))
+    assert list(got) == list(want)
+    for path in want:
+        np.testing.assert_allclose(got[path], want[path], atol=2e-6, rtol=0,
+                                   err_msg=path)
+
+
+def test_reference_one_step_cli_envelope_resumes_in_the_port_cli(
+        reference_clis, tmp_path, capsys):
+    """The JAX package's ``--staleness one_step`` envelope at step 4, its
+    in-flight aggregate included, resumed by the port's CLI to step 6:
+    loss and parameters within the tolerances above."""
+    directory, out = reference_clis["one_step"]
+    mine = tmp_path / "port"
+    mine.mkdir()
+    shutil.copy(os.path.join(directory, "ckpt_0000000004.msgpack"), mine)
+    tail = cli(capsys, "--steps", "6", "--ckpt-dir", str(mine), "--resume",
+               "--staleness", "one_step")
     assert "resumed from step 4" in tail
     np.testing.assert_allclose(float.fromhex(final_hex(tail)),
                                float.fromhex(final_hex(out)), rtol=1e-5)

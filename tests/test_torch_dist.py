@@ -45,6 +45,16 @@ one worker each, started once for the whole file.
   replicas bit-identical, the records at itemsize 2, losses and
   parameters within ``BF16_LOSS_RTOL`` / ``BF16_PARAM_ATOL`` (gloo's sum
   order flips bfloat16 roundings of P and Q elements).
+* (i) One-step staleness: ``STALE_STEPS`` steps of ``make_train_step``
+  under ``TrainHyper(staleness="one_step")``, PowerSGD with its reduces
+  split into chunks (``STALE_CAP``) on the pipelined transport (each
+  chunk's ``all_reduce`` issued asynchronously, waited on before its
+  unpack) and on the serial one: bit for bit the same, with the same
+  records and ``torch.distributed`` calls, the replicas bit-identical, and
+  each rank within (b)'s tolerances of the port's ``make_sim_train_step``
+  on ``SimMesh(4)`` (the in-flight aggregate within ``STATE_ATOL``).  In
+  (a), ``pmean_flat(interleave=True)`` on every wire, chunked, bit for bit
+  the serial schedule's result with its records and calls.
 * (e) Two more schemes of the zoo, 2 steps each with one base seed:
   ``random_k`` (shared-seed draws on a reduce) and ``sign_norm`` (a
   gather of int8 signs and float norms).  Every rank draws the same
@@ -103,6 +113,7 @@ RANK_SCHEDULE, RANK_STEPS = "2@0,4@1,1@3", 4   # (g): ranks 2, 4, 4, 1
 ZOO_SEED = 7          # the base seed every rank passes to the step
 WIRES = ("auto", "float32", "bfloat16", "int8", "int4")
 BF16_STEPS = 2        # (h)
+STALE_STEPS, STALE_CAP = 3, 1    # (i): a wire chunk for every part
 RENDEZVOUS_S = 60     # init_process_group and every collective
 RESULTS_S = 140       # from the spawn to the last rank's result
 REDUCE_ATOL = 1e-6
@@ -128,6 +139,10 @@ def _compressor(path):
         return compressors.make_compressor("top_k", rank=2, wire_dtype="int4")
     if path == "bf16":
         return compressors.make_compressor("powersgd", rank=2, wire_dtype="bfloat16")
+    if path in ("stale", "stale_serial"):
+        return compressors.make_compressor("powersgd", rank=2,
+                                           pipeline=path == "stale",
+                                           max_chunk_bytes=STALE_CAP)
     return None
 
 
@@ -137,7 +152,9 @@ def _hyper(start_compress_step=0, path="powersgd"):
     orth = "cholesky_qr" if path == "cholesky_qr" else "gram_schmidt"
     return train.TrainHyper(q_chunk=16, warmup_steps=2,
                             start_compress_step=start_compress_step,
-                            orthogonalizer=orth)
+                            orthogonalizer=orth,
+                            staleness=("one_step" if path.startswith("stale")
+                                       else "none"))
 
 
 def _batches(vocab, steps):
@@ -207,6 +224,16 @@ def _rank_backend(rank, inputs):
         out[("reduce", wire)] = ([x.numpy() for x in red], _records(stats))
         out["inputs_unchanged"] += [torch.equal(a, b) for a, b in
                                     zip(parts, mine(inputs["reduce"]))]
+        runs = []
+        for interleave in (False, True):
+            stats.reset()
+            dist.reset_calls()
+            red = ctx.pmean_flat(mine(inputs["reduce"]), wire_dtype=wire,
+                                 max_chunk_bytes=_reduce_cap(wire),
+                                 interleave=interleave)
+            runs.append(([x.numpy() for x in red], _records(stats),
+                         dict(dist.CALLS)))
+        out[("chunked reduce", wire)] = runs
         stats.reset()
         gat = ctx.allgather_flat(mine(inputs["gather"]), wire_dtype=wire)
         out[("gather", wire)] = ([x.numpy() for x in gat], _records(stats))
@@ -218,17 +245,27 @@ def _rank_backend(rank, inputs):
     return out
 
 
+def _reduce_cap(wire):
+    """(a)'s chunked reduces: 28 elements a chunk on every wire, so the
+    reduce parts travel in 4 or 5 chunks."""
+    return int(28 * {"auto": 4, "float32": 4, "bfloat16": 2, "int8": 1,
+                     "int4": 0.5}[wire])
+
+
 def _rank_steps(rank, path, start, batches, start_compress_step=0):
-    """(b), (c), (f): the distributed step on this rank's shard of each
-    batch."""
+    """(b), (c), (f), (h), (i): the distributed step on this rank's shard of
+    each batch."""
     cfg = llama3_8b.reduced_config()
     stats = dist.CollectiveStats()
-    step, _ = train.make_train_step(cfg, _hyper(start_compress_step, path),
-                                    _compressor(path), stats=stats, device="cpu")
+    hyper = _hyper(start_compress_step, path)
+    step, _ = train.make_train_step(cfg, hyper, _compressor(path), stats=stats,
+                                    device="cpu")
     params = bridge.to_torch(start["params"])
     ef = EFState(error=tree.map(torch.zeros_like, params),
                  momentum=tree.map(torch.zeros_like, params),
-                 comp=bridge.to_torch(start["comp"]))
+                 comp=bridge.to_torch(start["comp"]),
+                 inflight=(tree.map(torch.zeros_like, params)
+                           if hyper.staleness == "one_step" else None))
     losses, records, calls, error_zero = [], [], [], []
     dist.reset_calls()
     for b in batches:
@@ -244,11 +281,13 @@ def _rank_steps(rank, path, start, batches, start_compress_step=0):
            "calls": dict(dist.CALLS), "calls_after_step": calls,
            "error_zero": error_zero, "error": bridge.to_numpy(ef.error),
            "digests": {k: _digest(t) for k, t in (
-               ("params", params), ("momentum", ef.momentum), ("q", ef.comp))}}
+               ("params", params), ("momentum", ef.momentum), ("q", ef.comp),
+               ("inflight", ef.inflight or {}))}}
     if rank == 0:
         out.update(params=bridge.to_numpy(params),
                    momentum=bridge.to_numpy(ef.momentum),
-                   q=bridge.to_numpy(ef.comp))
+                   q=bridge.to_numpy(ef.comp),
+                   inflight=ef.inflight and bridge.to_numpy(ef.inflight))
     return out
 
 
@@ -357,6 +396,9 @@ def _rank_main(rank, rdzv, inputs, results):
                                          inputs["batches"]["adaptive"])
         out["bf16"] = _rank_steps(rank, "bf16", inputs["start"]["powersgd"],
                                   inputs["batches"]["bf16"])
+        for path in ("stale", "stale_serial"):
+            out[path] = _rank_steps(rank, path, inputs["start"]["powersgd"],
+                                    inputs["batches"]["stale"])
         results.put((rank, out))
     except BaseException:
         results.put((rank, traceback.format_exc()))
@@ -421,6 +463,7 @@ def _run_ranks():
     batches["warmup"] = _batches(vocab, WARMUP_STEPS)
     batches["adaptive"] = _batches(vocab, RANK_STEPS)
     batches["bf16"] = _batches(vocab, BF16_STEPS)
+    batches["stale"] = _batches(vocab, STALE_STEPS)
     refs = {p: _reference(p) for p in STEPS}
     refs["warmup"] = _reference("powersgd", start_compress_step=WARMUP_K)
     starts = {p: {"params": _np_tree(r[3], 0), "comp": _np_tree(r[4].comp, 0)}
@@ -544,6 +587,22 @@ def test_quantized_payloads_bitexact(run, wire):
         assert got_payload.dtype == payload.numpy().dtype
         np.testing.assert_array_equal(got_payload, payload.numpy())
         np.testing.assert_array_equal(got_scales, scales.numpy())
+
+
+@pytest.mark.parametrize("wire", WIRES)
+def test_interleaved_reduce_is_the_serial_schedule(run, wire):
+    """(a): ``pmean_flat(interleave=True)`` over the process group, each
+    chunk's ``all_reduce`` issued asynchronously and waited on just before
+    its unpack: the serial schedule's bits, records and calls, with at
+    least 4 chunks."""
+    for r in range(W):
+        (serial, s_records, s_calls), (inter, i_records, i_calls) = (
+            run["ranks"][r]["backend"][("chunked reduce", wire)])
+        assert i_records == s_records and i_calls == s_calls
+        assert len(s_records[0]) >= 4 and s_calls["all_reduce"] == len(s_records[0])
+        for a, b in zip(serial, inter):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
 
 
 # ---------------------------------------------------------------------------
@@ -698,6 +757,64 @@ def _bf16_sim_steps(run, stats=None):
             {k: torch.tensor(v) for k, v in b.items()}))
         losses.append(m["lm_loss"].item())
     return losses, bridge.to_numpy(params)
+
+
+# ---------------------------------------------------------------------------
+# (i) one-step staleness
+# ---------------------------------------------------------------------------
+
+def test_one_step_steps_match_sim_and_serial_schedule(run):
+    """The pipelined transport's asynchronous reduces give the serial
+    transport's run bit for bit on every rank (losses, parameters,
+    momentum, factors, in-flight aggregate), with the same records and
+    ``torch.distributed`` calls: one per wire chunk and one for the loss.
+    The replicas stay bit-identical; each rank's losses within 1e-5 and
+    rank 0's parameters within 2e-6 of ``SimMesh(4)`` on the same path,
+    its momentum, factors and in-flight aggregate within 1e-5."""
+    for r in range(W):
+        got, serial = run["ranks"][r]["stale"], run["ranks"][r]["stale_serial"]
+        assert got["losses"] == serial["losses"]
+        assert got["digests"] == serial["digests"]
+        assert got["digests"] == run["ranks"][0]["stale"]["digests"]
+        assert got["records"] == serial["records"]
+        assert got["calls_after_step"] == serial["calls_after_step"]
+        chunks = len(got["records"][0][0])
+        assert chunks > 2 and got["records"] == [got["records"][0]] * STALE_STEPS
+        assert got["calls"] == {"all_reduce": (chunks + 1) * STALE_STEPS,
+                                "all_gather": 0}
+    start = run["inputs"]["start"]["powersgd"]
+    stats = dist.CollectiveStats()
+    step, _ = train.make_sim_train_step(
+        llama3_8b.reduced_config(), SimMesh(W), _hyper(path="stale"),
+        _compressor("stale"), stats=stats, device="cpu")
+    params = bridge.to_torch(start["params"])
+    ef = EFState(error=tree.map(lambda p: torch.zeros((W,) + tuple(p.shape)), params),
+                 momentum=tree.map(torch.zeros_like, params),
+                 comp=bridge.to_torch(start["comp"]),
+                 inflight=tree.map(torch.zeros_like, params))
+    losses = []
+    for b in run["inputs"]["batches"]["stale"]:
+        stats.reset()
+        params, ef, m = step(params, ef, SimMesh(W).shard(
+            {k: torch.tensor(v) for k, v in b.items()}))
+        losses.append(m["lm_loss"].item())
+    got = run["ranks"][0]["stale"]
+    assert got["records"][-1] == _records(stats)
+    for r in range(W):
+        np.testing.assert_allclose(run["ranks"][r]["stale"]["losses"], losses,
+                                   rtol=LOSS_RTOL)
+    for name, want, atol in (("params", params, PARAM_ATOL),
+                             ("momentum", ef.momentum, STATE_ATOL),
+                             ("q", ef.comp, STATE_ATOL),
+                             ("inflight", ef.inflight, STATE_ATOL)):
+        for (p, g), w_ in zip(tree.items(got[name]),
+                              tree.leaves(bridge.to_numpy(want))):
+            if w_ is None:
+                assert g is None, p
+                continue
+            np.testing.assert_allclose(g, w_, atol=atol, rtol=0,
+                                       err_msg=f"{name} {list(p)}")
+    assert any(np.abs(x).max() > 0 for x in tree.leaves(got["inflight"]))
 
 
 # ---------------------------------------------------------------------------

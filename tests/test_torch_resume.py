@@ -19,6 +19,15 @@ bytes, as a new process would.
   against the reference's uninterrupted run; the port runs steps 0–3 from
   the reference's start (``bridge.to_torch``) and saves, and the reference
   restores it and continues against the same run.
+* One-step staleness (``TrainHyper(staleness="one_step")``, the reference
+  suite's lr 0.05 and momentum 0; ``tests/sim/test_resume.py``): a save in
+  mid pipeline, with a nonzero in-flight aggregate, resumes bit for bit
+  (losses, parameters, the in-flight tree) and needs no splice; a v1
+  envelope without the record zero-fills the in-flight tree of a one-step
+  template (``meta["inflight"] == "zero_filled"``) and trains on; a
+  one-step envelope restored into a synchronous template drops it
+  (``"dropped"``).  Across packages both ways as above, the restored
+  in-flight tree bit-equal to the saved one.
 
 Declared divergences: the base key crosses as ``jax.random.key(seed)``'s
 data, but the packages draw different streams from it (PowerSGD's
@@ -27,8 +36,11 @@ rank, ema and history, not its column stream
 (``tests/test_torch_checkpoint.py::test_controller_state_dict_crosses_both_ways``).
 """
 
+import zlib
+
 import jax
 import jax.numpy as jnp
+import msgpack
 import numpy as np
 import pytest
 import torch
@@ -63,13 +75,19 @@ STEPS, CKPT_AT = 8, 4
 KEY = jax.random.key(0)
 
 
-def build(workers, schedule=None, wire_dtype="auto"):
+# the one-step runs train at the reference suite's operating point
+STALE = {"lr": 0.05, "momentum": 0.0}
+
+
+def build(workers, schedule=None, wire_dtype="auto", staleness="none"):
     """A new "process": compressor, step and controller."""
     cfg = llama3_8b.reduced_config()
     hyper = train.TrainHyper(q_chunk=32, warmup_steps=5, weight_decay=0.0,
-                             wire_dtype=wire_dtype)
+                             wire_dtype=wire_dtype, staleness=staleness,
+                             **(STALE if staleness == "one_step" else {}))
     comp = PowerSGDCompressor(rank=2, rank_schedule=schedule,
-                              wire_dtype=wire_dtype)
+                              wire_dtype=wire_dtype,
+                              pipeline=staleness == "one_step")
     sim = SimMesh(workers)
     step, init = train.make_sim_train_step(cfg, sim, hyper, compressor=comp,
                                            device="cpu")
@@ -99,9 +117,12 @@ def save_at(directory, sim, params, ef, ctl=None, wire_dtype="auto"):
         controller=ctl, extra_meta={"wire_dtype": wire_dtype})
 
 
-def restore_into(directory, workers, schedule=None, wire_dtype="auto"):
-    cfg, sim, step, init, ctl = build(workers, schedule, wire_dtype)
+def restore_into(directory, workers, schedule=None, wire_dtype="auto",
+                 staleness="none"):
+    cfg, sim, step, init, ctl = build(workers, schedule, wire_dtype, staleness)
     p0, e0 = init(torch.Generator().manual_seed(99))   # not the saved values
+    if e0.inflight is not None:
+        tree.map(lambda x: x.fill_(1.0), e0.inflight)   # not zeros either
     state, meta = ckpt.restore_train_state(
         str(directory), ckpt.TrainState(*ckpt.canonicalize_sim(sim, p0, e0)))
     if ctl is not None and meta.get("controller"):
@@ -173,10 +194,11 @@ def test_mismatched_wire_and_truncation_rejected(tmp_path):
 # the reference's runs
 # ---------------------------------------------------------------------------
 
-def jbuild(workers):
+def jbuild(workers, staleness="none"):
     cfg = jllama.reduced_config()
     hyper = jtrain.TrainHyper(q_chunk=32, warmup_steps=5, remat=False,
-                              weight_decay=0.0)
+                              weight_decay=0.0, staleness=staleness,
+                              **(STALE if staleness == "one_step" else {}))
     sim = JSimMesh(workers)
     step, init = jtrain.make_sim_train_step(cfg, sim, hyper)
     return cfg, sim, step, init
@@ -280,3 +302,145 @@ def test_elastic_4_to_2_matches_the_reference_rescale(tmp_path):
     # and the rescaled run trains on
     p2, e2, tail = run(cfg, sim, step, p2, e2, None, 2, 4)
     assert all(np.isfinite(tail))
+
+
+# ---------------------------------------------------------------------------
+# one-step staleness
+# ---------------------------------------------------------------------------
+
+def _nonzero(t):
+    return any(bool(x.any()) for x in tree.leaves(t))
+
+
+def test_resume_bit_exact_one_step_mid_pipeline(tmp_path):
+    """A save in mid pipeline, a nonzero aggregate parked in
+    ``EFState.inflight``, resumes bit for bit: the envelope carries the
+    in-flight tree like any other state, and no splice runs."""
+    w = 4
+    cfg, sim, step, init, _ = build(w, staleness="one_step")
+    params, ef = init(torch.Generator().manual_seed(0))
+    params, ef, head = run(cfg, sim, step, params, ef, None, 0, CKPT_AT)
+    assert _nonzero(ef.inflight)
+    save_at(tmp_path, sim, params, ef)
+    params, ef, tail = run(cfg, sim, step, params, ef, None, CKPT_AT, STEPS)
+
+    cfg, sim, step, _, p2, e2, meta = restore_into(tmp_path, w,
+                                                   staleness="one_step")
+    assert "inflight" not in meta and e2.step == CKPT_AT
+    p2, e2, tail2 = run(cfg, sim, step, p2, e2, None, CKPT_AT, STEPS)
+    assert tail2 == tail
+    assert_bit_equal(p2, params)
+    assert_bit_equal(e2.inflight, ef.inflight)
+    assert_bit_equal(e2.error, ef.error)
+
+
+def _strip_inflight(path):
+    """Take the ``['ef'].inflight`` records out of the envelope at ``path``
+    and mark it v1 (the crc recomputed)."""
+    payload = msgpack.unpackb(open(path, "rb").read(), raw=False)
+    kept = [d for d in payload["leaves"]
+            if not d["path"].startswith("['ef'].inflight")]
+    assert len(kept) < len(payload["leaves"])
+    payload["leaves"] = kept
+    crc = 0
+    for d in kept:
+        if d["kind"] == "array":
+            crc = zlib.crc32(d["data"], crc)
+    payload["crc32"] = crc
+    payload["meta"]["train_state_version"] = 1
+    with open(path, "wb") as f:
+        f.write(msgpack.packb(payload, use_bin_type=True))
+
+
+def test_legacy_envelope_zero_fills_inflight(tmp_path):
+    """A v1 envelope (no ``['ef'].inflight`` record) into a one-step
+    template: the template's in-flight tensors are zeroed in place
+    (``"zero_filled"``: one more pipeline bubble) and the run trains on."""
+    w = 2
+    cfg, sim, step, init, _ = build(w)
+    params, ef = init(torch.Generator().manual_seed(0))
+    params, ef, _ = run(cfg, sim, step, params, ef, None, 0, CKPT_AT)
+    _strip_inflight(save_at(tmp_path, sim, params, ef))
+    cfg, sim, step, _, p2, e2, meta = restore_into(tmp_path, w,
+                                                   staleness="one_step")
+    assert meta["inflight"] == "zero_filled" and e2.step == CKPT_AT
+    assert not _nonzero(e2.inflight)
+    assert_bit_equal(p2, params)
+    before = tree.map(torch.clone, p2)
+    p2, e2, tail = run(cfg, sim, step, p2, e2, None, CKPT_AT, CKPT_AT + 2)
+    assert all(np.isfinite(tail)) and _nonzero(e2.inflight)
+    # the replayed bubble applied zeros at step CKPT_AT, then step CKPT_AT's
+    # aggregate at CKPT_AT + 1
+    assert not all(torch.equal(a, b) for a, b in
+                   zip(tree.leaves(p2), tree.leaves(before)))
+
+
+def test_one_step_envelope_into_sync_template_drops(tmp_path):
+    w = 2
+    cfg, sim, step, init, _ = build(w, staleness="one_step")
+    params, ef = init(torch.Generator().manual_seed(0))
+    params, ef, _ = run(cfg, sim, step, params, ef, None, 0, CKPT_AT)
+    save_at(tmp_path, sim, params, ef)
+    cfg, sim, step, _, p2, e2, meta = restore_into(tmp_path, w)
+    assert meta["inflight"] == "dropped" and e2.inflight is None
+    assert_bit_equal(p2, params)
+    p2, e2, tail = run(cfg, sim, step, p2, e2, None, CKPT_AT, CKPT_AT + 2)
+    assert all(np.isfinite(tail))
+
+
+@pytest.fixture(scope="module")
+def stale_reference(tmp_path_factory):
+    """The reference's one-step run at W = 2: start, 8 steps, its envelope
+    at step 4 and the in-flight aggregate it holds."""
+    directory = tmp_path_factory.mktemp("ref_stale")
+    cfg, sim, step, init = jbuild(2, staleness="one_step")
+    params, ef = init(KEY)
+    start = (jfirst(params), jfirst(ef.comp))
+    params, ef, head = jrun(cfg, sim, step, params, ef, 0, CKPT_AT)
+    saved_inflight = jfirst(ef.inflight)
+    jsave(directory, sim, params, ef)
+    params, ef, tail = jrun(cfg, sim, step, params, ef, CKPT_AT, STEPS)
+    return {"dir": directory, "start": start, "losses": head + tail,
+            "params": jfirst(params), "inflight": saved_inflight,
+            "jax": (cfg, sim, step, init)}
+
+
+def test_reference_one_step_envelope_resumes_in_the_port(stale_reference):
+    ref = stale_reference
+    cfg, sim, step, _, params, ef, meta = restore_into(ref["dir"], 2,
+                                                       staleness="one_step")
+    assert "inflight" not in meta and ef.step == CKPT_AT
+    for got, want in zip(tree.leaves(bridge.to_numpy(ef.inflight)),
+                         tree.leaves(ref["inflight"])):
+        np.testing.assert_array_equal(got, want)
+    assert any(np.abs(x).max() > 0 for x in tree.leaves(ref["inflight"]))
+    params, ef, tail = run(cfg, sim, step, params, ef, None, CKPT_AT, STEPS)
+    hold(tail, bridge.to_numpy(params), ref["losses"][CKPT_AT:], ref["params"])
+
+
+def test_port_one_step_envelope_resumes_in_the_reference(stale_reference,
+                                                         tmp_path):
+    ref = stale_reference
+    params0, q0 = ref["start"]
+    cfg, sim, step, _, _ = build(2, staleness="one_step")
+    params = bridge.to_torch(params0)
+    ef = error_feedback.EFState(
+        error=tree.map(lambda p: torch.zeros((2,) + tuple(p.shape)), params),
+        momentum=tree.map(torch.zeros_like, params), comp=bridge.to_torch(q0),
+        inflight=tree.map(torch.zeros_like, params))
+    params, ef, head = run(cfg, sim, step, params, ef, None, 0, CKPT_AT)
+    np.testing.assert_allclose(head, ref["losses"][:CKPT_AT], rtol=1e-5)
+    save_at(tmp_path, sim, params, ef)
+
+    jcfg, jsim, jstep, jinit = ref["jax"]
+    p0, e0 = jinit(jax.random.key(5))
+    template = jckpt.TrainState(*jckpt.canonicalize_sim(jsim, p0, e0), key=KEY,
+                                data_step=jnp.zeros((), jnp.int32))
+    state, meta = jckpt.restore_train_state(str(tmp_path), template)
+    assert "inflight" not in meta and int(state.ef.step) == CKPT_AT
+    for got, want in zip(jax.tree_util.tree_leaves(state.ef.inflight),
+                         tree.leaves(bridge.to_numpy(ef.inflight))):
+        np.testing.assert_array_equal(np.asarray(got), want)
+    jp, je = jckpt.replicate_sim(jsim, state.params, state.ef)
+    jp, je, tail = jrun(jcfg, jsim, jstep, jp, je, CKPT_AT, STEPS)
+    hold(tail, jfirst(jp), ref["losses"][CKPT_AT:], ref["params"])
