@@ -204,6 +204,21 @@ Phases, in order; any failure raises and the script exits non-zero:
               all-reduces bit-equal to the serial transport and to
               ``SimMesh(1)``, with the same records and calls; (d) a save
               in mid pipeline resumed bit for bit.
+18. sync    — ``TrainHyper(sync_mode="broadcast", track_drift=True)``,
+              replica-deterministic aggregation: (a) phase 6's full width,
+              SYNC_STEPS allreduce then SYNC_STEPS broadcast steps from one
+              initial state: step ms, peak, records (2 reduces + 1
+              broadcast of P̂ + Q + the uncompressed leaves), 6 + 6
+              low-rank launches a step, the drift metrics (0.0 but the
+              error buffers'), the drift probe timed alone, the distance
+              between the runs; then one dense warm-up step under the
+              mode (its canonical reduce of the whole gradient): peak
+              beside phase 12's; (b) reduced Llama-3-8B at W = 2 under the
+              mode, card against CPU: PowerSGD (also with
+              ``start_compress_step=1``) and Top-K/int4; (c), inside phase
+              5's group, ``make_train_step`` on NCCL under the mode
+              bit-equal to ``SimMesh(1)`` under it, with the declared
+              ``torch.distributed`` calls.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after; the summary line gives each kernel's launches on every
@@ -871,21 +886,24 @@ def ef_apply_ragged(torch, ops, ef_kernel, ref):
 
 def parity_phase(torch, mods, name, make_compressor, check, workers=2,
                  weights=None, steps=3, start_compress_step=0, after_step=None,
-                 staleness="none"):
+                 staleness="none", sync_mode="allreduce", metrics_log=None):
     """Reduced Llama-3-8B, ``steps`` steps, ``workers`` workers (2
     sequences each) under the scenario ``weights`` (``None``: uniform),
-    the first ``start_compress_step`` of them dense, under ``staleness``:
-    the card (kernels) against the CPU (plain versions), from identical
-    parameters and compressor state.  ``check(losses_cpu, losses_card, params_cpu,
+    the first ``start_compress_step`` of them dense, under ``staleness``
+    and ``sync_mode`` (``"broadcast"`` with ``track_drift``): the card
+    (kernels) against the CPU (plain versions), from identical parameters
+    and compressor state.  ``check(losses_cpu, losses_card, params_cpu,
     params_card)`` raises on disagreement; ``after_step(device, i, ef)``,
-    if given, runs after each step.  Returns the card's step, its state
-    after the last step, the mesh and the data stream."""
+    if given, runs after each step; ``metrics_log``, if given, gets
+    ``(device, i, drift metrics)`` after each step.  Returns the card's
+    step, its state after the last step, the mesh and the data stream."""
     train, llama3_8b, SimMesh, MarkovLM, tree = mods
     cfg = llama3_8b.reduced_config()
     sim = SimMesh(workers)
     hyper = train.TrainHyper(q_chunk=64, warmup_steps=2,
                              start_compress_step=start_compress_step,
-                             staleness=staleness)
+                             staleness=staleness, sync_mode=sync_mode,
+                             track_drift=sync_mode == "broadcast")
     _, init = train.make_sim_train_step(cfg, sim, hyper, device="cpu",
                                         compressor=make_compressor())
     runs = {}
@@ -903,6 +921,9 @@ def parity_phase(torch, mods, name, make_compressor, check, workers=2,
             losses.append(metrics["lm_loss"].item())
             if after_step is not None:
                 after_step(dev, i, ef)
+            if metrics_log is not None:
+                metrics_log.append((dev, i, {k: v.item() for k, v in metrics.items()
+                                             if k.startswith("drift_")}))
         runs[dev] = (losses, tree.map(lambda x: x.cpu(), params))
     (l_cpu, p_cpu), (l_gpu, p_gpu) = runs["cpu"], runs["cuda"]
     check(name, l_cpu, l_gpu, tree.leaves(p_cpu), tree.leaves(p_gpu))
@@ -1337,7 +1358,9 @@ def dist_run(torch, mods, cfg, mode, compressor, stats, batches, hyper=None,
         rows.append({"rank": ctl and ctl.rank, "lm_loss": loss,
                      "residual_ratio": residual,
                      "step_ms": (time.perf_counter() - t0) * 1e3,
-                     "records": [stats.kinds[n0:], stats.sizes[n0:]]})
+                     "records": [stats.kinds[n0:], stats.sizes[n0:]],
+                     "drift": {k: v.item() for k, v in metrics.items()
+                               if k.startswith("drift_")}})
     peak = (torch.cuda.max_memory_allocated() - base) / 2**30
     losses = [r["lm_loss"] for r in rows]
     if ef.step != len(batches) or not all(math.isfinite(v) for v in losses):
@@ -1356,7 +1379,7 @@ def dist_phase(torch, mods, kernel_mods, cfg, compressors, CollectiveStats,
     with the simulated step in the CPU's place.  Every launch count and the
     count of ``torch.distributed`` calls are set to 0 just before the
     distributed run and read just after.  Then phase 12 (c), phase 13 (c),
-    phase 14 (d), phase 15 (e) and phase 17 (c) in the same group
+    phase 14 (d), phase 15 (e), phase 17 (c) and phase 18 (c) in the same group
     (``adaptive``: the port's ``powersgd`` and ``error_feedback`` modules).
     Returns {path: launches}."""
     import torch.distributed as tdist
@@ -1376,11 +1399,11 @@ def dist_phase(torch, mods, kernel_mods, cfg, compressors, CollectiveStats,
         "powersgd": (lambda: compressors.make_compressor("powersgd", rank=RANK),
                      check_powersgd_parity,
                      {"lowrank_project": n_buckets, "lowrank_backproject": n_buckets},
-                     (2, 0), {"all_reduce": 3, "all_gather": 0}),
+                     (2, 0), {"all_reduce": 3, "all_gather": 0, "broadcast": 0}),
         "top_k_int4": (lambda: compressors.make_compressor("top_k", rank=RANK,
                                                            wire_dtype="int4"),
                        check_topk_parity, {"nibble_pack": 1, "nibble_unpack": 1},
-                       (1, 2), {"all_reduce": 2, "all_gather": 3}),
+                       (1, 2), {"all_reduce": 2, "all_gather": 3, "broadcast": 0}),
     }
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1461,6 +1484,8 @@ def dist_phase(torch, mods, kernel_mods, cfg, compressors, CollectiveStats,
             out["staleness"] = dist_stale(torch, mods, kernel_mods, cfg,
                                           compressors, CollectiveStats, pdist,
                                           n_buckets, smi, batches)
+            out["sync"] = dist_sync(torch, mods, kernel_mods, cfg, CollectiveStats,
+                                    pdist, n_buckets, smi, batches)
         finally:
             tdist.destroy_process_group()
     return out
@@ -1512,7 +1537,8 @@ def dist_warmup(torch, mods, kernel_mods, cfg, compressors, CollectiveStats,
         raise AssertionError(f"warmup dist: records {stats.kinds} {stats.sizes}, "
                              f"want {want_kinds} with {k} dense reduce(s) of "
                              f"{n_params} and the simulated step's records")
-    want_calls = {"all_reduce": 2 * k + 3 * (n - k), "all_gather": 0}
+    want_calls = {"all_reduce": 2 * k + 3 * (n - k), "all_gather": 0,
+                  "broadcast": 0}
     if real_calls != want_calls:
         raise AssertionError(f"warmup dist: torch.distributed calls {real_calls}, "
                              f"want {want_calls}")
@@ -1576,7 +1602,7 @@ def dist_adaptive(torch, mods, kernel_mods, cfg, adaptive, CollectiveStats, pdis
     sizes = [r["records"][1] for r in r_dist]
     if [s[1] * 2 // r["rank"] for s, r in zip(sizes, r_dist)] != [sizes[0][1]] * n:
         problems.append(f"Q reduce sizes {sizes} do not follow the ranks")
-    if calls != {"all_reduce": 4 * n, "all_gather": 0}:
+    if calls != {"all_reduce": 4 * n, "all_gather": 0, "broadcast": 0}:
         problems.append(f"torch.distributed calls {calls}")
     want = {name: 0 for name in launches}
     want.update(lowrank_project=n * n_buckets, lowrank_backproject=n * n_buckets)
@@ -2327,7 +2353,8 @@ def warmup_llama_phase(torch, mods, kernel_mods, cfg, compressors,
     """(b): phase 6's full width with ``start_compress_step=WARMUP_K`` over
     WARMUP_FULL_STEPS steps, each step's launches, records and peak read
     after it and set to 0 before it.  ``psgd_run`` holds phase 6's median
-    step ms and peak GiB.  Returns the run's launches."""
+    step ms and peak GiB.  Returns the run's launches and its dense steps'
+    peak GiB."""
     train, tree, SimMesh, MarkovLM = mods
     sim = SimMesh(WORKERS)
     batches = llama_batches(torch, MarkovLM, cfg, sim, WARMUP_FULL_STEPS)
@@ -2419,7 +2446,7 @@ def warmup_llama_phase(torch, mods, kernel_mods, cfg, compressors,
     torch.cuda.empty_cache()
     if problems:
         raise AssertionError(f"warmup llama: {problems}")
-    return launches
+    return launches, summary["peak_gib_dense"]
 
 
 # Adaptive rank (phase 13): ``TrainHyper(rank_schedule=..., track_residual=
@@ -3026,7 +3053,7 @@ def dist_orth(torch, mods, kernel_mods, cfg, CollectiveStats, pdist, n_buckets,
     if collective_records(stats) != collective_records(sim_stats) or (
             stats.kinds != ["reduce"] * 2 * n):
         problems.append(f"records {stats.kinds} {stats.sizes}")
-    if real_calls != {"all_reduce": 3 * n, "all_gather": 0}:
+    if real_calls != {"all_reduce": 3 * n, "all_gather": 0, "broadcast": 0}:
         problems.append(f"torch.distributed calls {real_calls}")
     want = {name: 0 for name in launches}
     want.update(lowrank_project=n * n_buckets, lowrank_backproject=n * n_buckets)
@@ -3454,7 +3481,7 @@ def dist_bf16(torch, mods, kernel_mods, cfg, CollectiveStats, pdist, n_buckets,
     if collective_records(stats) != collective_records(sim_stats) or (
             stats.kinds != ["reduce"] * 2 * n) or set(stats.itemsizes) != {2}:
         problems.append(f"records {stats.kinds} {stats.itemsizes}")
-    if real_calls != {"all_reduce": 3 * n, "all_gather": 0}:
+    if real_calls != {"all_reduce": 3 * n, "all_gather": 0, "broadcast": 0}:
         problems.append(f"torch.distributed calls {real_calls}")
     want = {name: 0 for name in launches}
     want.update(lowrank_project=n * n_buckets, lowrank_backproject=n * n_buckets)
@@ -3773,18 +3800,19 @@ def equal_to_host(torch, tree, t, host) -> bool:
                for x, y in zip(tree.leaves(t), host))
 
 
-def stale_llama_run(torch, mods, kernel_mods, cfg, stats, staleness, batches,
-                    after_step=None):
-    """STALE_STEPS steps of phase 6's configuration under ``staleness``
-    (the default compressor: rank-RANK PowerSGD, on the pipelined transport
-    under "one_step"), from the state ``init_state`` draws from seed 0.
-    ``after_step(i, params, ef)`` runs after each step, outside its
-    timing.  Per step: loss, ms, peak GiB (the peak reset before it), bits,
-    records and launches (reset before it); the final state."""
+def llama_run(torch, mods, kernel_mods, cfg, stats, hyper, label, batches,
+              after_step=None):
+    """One step per batch of phase 6's configuration under ``hyper`` (the
+    default compressor: rank-RANK PowerSGD, on the pipelined transport
+    under one-step staleness), from the state ``init_state`` draws from
+    seed 0, each step printed under ``label``.  ``after_step(i, params,
+    ef)`` runs after each step, outside its timing.  Per step: loss, ms,
+    peak GiB (the peak reset before it), bits, records, wire bytes,
+    launches (reset before it) and the drift metrics (under
+    ``track_drift``); the final state."""
     train, tree = mods[0], mods[1]
     sim = mods[2](WORKERS)
-    step, init = train.make_sim_train_step(
-        cfg, sim, train.TrainHyper(staleness=staleness), stats=stats)
+    step, init = train.make_sim_train_step(cfg, sim, hyper, stats=stats)
     params, ef = init(torch.Generator("cuda").manual_seed(0))
     if after_step is not None:
         after_step(-1, params, ef)
@@ -3803,9 +3831,11 @@ def stale_llama_run(torch, mods, kernel_mods, cfg, stats, staleness, batches,
                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                      "bits_per_worker": metrics["bits_per_worker"],
                      "launches": read_all_launches(kernel_mods),
-                     "records": collective_records(stats)})
-        print(f"staleness {staleness} step {i} lm_loss={loss:.6f} "
-              f"step_ms={ms:.1f}", flush=True)
+                     "records": collective_records(stats),
+                     "bytes": stats.bytes_per_collective(),
+                     "drift": {k: v.item() for k, v in metrics.items()
+                               if k.startswith("drift_")}})
+        print(f"{label} step {i} lm_loss={loss:.6f} step_ms={ms:.1f}", flush=True)
         if after_step is not None:
             after_step(i, params, ef)
     return rows, params, ef
@@ -3845,8 +3875,9 @@ def stale_llama_phase(torch, mods, kernel_mods, cfg, CollectiveStats, n_buckets,
 
     s_none, s_stale = CollectiveStats(), CollectiveStats()
     t0 = time.perf_counter()
-    rows_none, params, ef = stale_llama_run(torch, mods, kernel_mods, cfg, s_none,
-                                            "none", batches, keep_none)
+    rows_none, params, ef = llama_run(torch, mods, kernel_mods, cfg, s_none,
+                                      train.TrainHyper(), "staleness none",
+                                      batches, keep_none)
     del params, ef
     torch.cuda.empty_cache()
     checks = {}
@@ -3863,8 +3894,9 @@ def stale_llama_phase(torch, mods, kernel_mods, cfg, CollectiveStats, n_buckets,
         checks["parked_equal_to_none_aggregate"] = equal_to_host(
             torch, tree, ef.inflight, host.pop("agg"))
 
-    rows, params, ef = stale_llama_run(torch, mods, kernel_mods, cfg, s_stale,
-                                       "one_step", batches, check_bubble)
+    rows, params, ef = llama_run(torch, mods, kernel_mods, cfg, s_stale,
+                                 train.TrainHyper(staleness="one_step"),
+                                 "staleness one_step", batches, check_bubble)
     finite = (all(math.isfinite(r["lm_loss"]) for r in rows)
               and all_finite(torch, tree, params, ef.error, ef.momentum, ef.comp,
                              ef.inflight))
@@ -4017,7 +4049,8 @@ def dist_stale(torch, mods, kernel_mods, cfg, compressors, CollectiveStats, pdis
     if not (pipelined["records"] == serial["records"] == sim["records"]):
         problems.append("records differ")
     if pipelined["calls"] != serial["calls"] or pipelined["calls"] != {
-            "all_reduce": (len(chunks) + 1) * DIST_STEPS, "all_gather": 0}:
+            "all_reduce": (len(chunks) + 1) * DIST_STEPS, "all_gather": 0,
+            "broadcast": 0}:
         problems.append(f"calls {pipelined['calls']} against the serial "
                         f"{serial['calls']}, {len(chunks)} chunks a step")
     if len(chunks) < 6:
@@ -4086,6 +4119,298 @@ def stale_resume_phase(torch, pmods, ckpt, compressors, kernel_mods, smi):
         raise AssertionError(f"staleness resume: bit-equal {equal}, parked "
                              f"{parked}, meta {meta.get('inflight')}")
     return launches
+
+
+# Replica-deterministic aggregation (phase 18): ``TrainHyper(sync_mode=
+# "broadcast", track_drift=True)``.  Every reduce gathers the workers'
+# contributions in rank order and sums them in one canonical pairwise tree;
+# PowerSGD's two reduces record no broadcast leg and the step ends with one
+# fused rank-0 broadcast of P̂, Q and the uncompressed aggregates; the drift
+# probe compares each replicated tree with worker 0's copy.  (a) Phase 6's
+# full width, SYNC_STEPS allreduce steps, then SYNC_STEPS broadcast steps
+# from the same initial state (the allreduce run's parameters stay on the
+# card, and the broadcast run's peak is given without them): per-step ms,
+# peak, records and launches, the drift metrics, the probe alone by CUDA
+# events, and the distance between the two runs' parameters; then one
+# dense warm-up step under the mode, whose canonical reduce sums the whole
+# stacked gradient, its peak beside phase 12's dense peak.  (b) Reduced
+# Llama-3-8B at W = 2 under the mode, card against CPU: PowerSGD under
+# phase 3's rule (also with start_compress_step=1) and Top-K/int4 under its
+# flip rule, the card's drift metrics.  (c), inside phase 5's group:
+# ``make_train_step`` on NCCL under the mode, bit-equal to ``SimMesh(1)``
+# under it, with the declared torch.distributed calls.
+
+SYNC_STEPS = 5             # (a), each run
+SYNC_SMALL_STEPS = 3       # (b)
+
+
+def drift_probe_ms(torch, train, ctx, params, ef, reps: int = 3) -> float:
+    """Device ms of the drift probe alone on the four trees the step
+    probes, the median of ``reps`` by CUDA events."""
+    times = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for t, per_worker in ((params, False), (ef.momentum, False),
+                              (ef.error, True), (ef.comp, False)):
+            train.replica_drift(ctx, t, per_worker=per_worker)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def sync_llama_phase(torch, mods, kernel_mods, cfg, CollectiveStats, n_buckets,
+                     psgd_run, warmup_peak, smi):
+    """(a); ``psgd_run`` holds phase 6's median step ms and peak GiB,
+    ``warmup_peak`` phase 12's dense peak GiB.  Returns the broadcast run's
+    launches."""
+    train, tree, SimMesh, MarkovLM = mods
+    sim = SimMesh(WORKERS)
+    batches = llama_batches(torch, MarkovLM, cfg, sim, SYNC_STEPS)
+    t0 = time.perf_counter()
+    rows_ar, params_ar, ef = llama_run(
+        torch, mods, kernel_mods, cfg, CollectiveStats(), train.TrainHyper(),
+        "sync allreduce", batches)
+    kept = tree.leaves(params_ar)
+    kept_gib = sum(x.numel() * x.element_size() for x in kept) / 2**30
+    del params_ar, ef
+    torch.cuda.empty_cache()
+    rows, params, ef = llama_run(
+        torch, mods, kernel_mods, cfg, CollectiveStats(),
+        train.TrainHyper(sync_mode="broadcast", track_drift=True),
+        "sync broadcast", batches)
+    for r in rows:
+        r["peak_gib"] -= kept_gib   # the allreduce run's parameters aside
+    bit_equal = all(torch.equal(a, b) for a, b in zip(tree.leaves(params), kept))
+    distance = max((a - b).abs().max().item()
+                   for a, b in zip(tree.leaves(params), kept))
+    del kept
+    finite = (all(math.isfinite(r["lm_loss"]) for r in rows)
+              and all_finite(torch, tree, params, ef.error, ef.momentum, ef.comp))
+    probe_ms = drift_probe_ms(torch, train, sim.ctx(sync_mode="broadcast"),
+                              params, ef)
+    n_params = sum(p.numel() for p in tree.leaves(params))
+    del params, ef
+    torch.cuda.empty_cache()
+
+    # one dense warm-up step under the mode: the canonical reduce of the
+    # whole stacked gradient
+    stats = CollectiveStats()
+    dense, params, ef = llama_run(
+        torch, mods, kernel_mods, cfg, stats,
+        train.TrainHyper(sync_mode="broadcast", start_compress_step=1),
+        "sync broadcast dense", batches[:1])
+    dense_ok = error_is_zero(torch, tree, ef) and all_finite(torch, tree, params)
+    del params, ef, batches
+    torch.cuda.empty_cache()
+    launches = {name: sum(r["launches"][name] for r in rows)
+                for name in rows[0]["launches"]}
+    summary = {
+        "check": "sync llama", "card": smi, "workers": WORKERS,
+        "steps": SYNC_STEPS, "rows_broadcast": rows, "rows_allreduce": rows_ar,
+        "median_step_ms_broadcast": statistics.median(r["step_ms"] for r in rows),
+        "median_step_ms_allreduce": statistics.median(r["step_ms"] for r in rows_ar),
+        "phase6_median_step_ms": psgd_run["median_step_ms"],
+        "peak_gib_broadcast": max(r["peak_gib"] for r in rows),
+        "peak_gib_allreduce": max(r["peak_gib"] for r in rows_ar),
+        "phase6_peak_gib": psgd_run["peak_gib"], "drift_probe_ms": probe_ms,
+        "params_bit_equal_to_allreduce": bit_equal,
+        "params_max_abs_diff_to_allreduce": distance,
+        "losses_equal_to_allreduce": [r["lm_loss"] for r in rows]
+        == [r["lm_loss"] for r in rows_ar],
+        "dense_step": dense[0], "dense_peak_gib": dense[0]["peak_gib"],
+        "phase12_dense_peak_gib": warmup_peak, "launches": launches,
+        "seconds": time.perf_counter() - t0}
+    print(json.dumps(summary), flush=True)
+    problems = []
+    for label, run, kinds in (("allreduce", rows_ar, ["reduce", "reduce"]),
+                              ("broadcast", rows, ["reduce", "reduce", "broadcast"])):
+        for r in run:
+            want = {name: 0 for name in r["launches"]}
+            want.update(lowrank_project=n_buckets, lowrank_backproject=n_buckets)
+            if r["launches"] != want:
+                problems.append(f"{label} step {r['step']}: launches "
+                                f"{r['launches']}, want {want}")
+            if r["records"][0] != kinds:
+                problems.append(f"{label} step {r['step']}: records {r['records'][0]}")
+    for r in rows:
+        sizes, b = r["records"][1], r["bytes"]
+        if not (sizes[2] == sizes[0] + sizes[1] and b[2] == b[0] + b[1]):
+            problems.append(f"step {r['step']}: the broadcast carries {sizes[2]} "
+                            f"elements, {b[2]} bytes, not P̂ + Q + the "
+                            f"uncompressed leaves ({sizes[:2]}, {b[:2]})")
+        d = r["drift"]
+        if not (d["drift_params"] == d["drift_momentum"] == d["drift_q"] == 0.0
+                and math.isfinite(d["drift_error"]) and d["drift_error"] > 0.0):
+            problems.append(f"step {r['step']}: drift {d}")
+    d0 = dense[0]
+    if not (dense_ok and d0["records"][0] == ["reduce", "broadcast"]
+            and d0["records"][1] == [n_params, n_params]
+            and not any(d0["launches"].values())):
+        problems.append(f"dense step under the mode: records {d0['records'][:2]}, "
+                        f"launches {d0['launches']}, error zero and finite {dense_ok}")
+    if not finite:
+        problems.append("non-finite state or losses")
+    if problems:
+        raise AssertionError(f"sync llama: {problems}")
+    return launches
+
+
+SYNC_SIGNED = [-0.0, 0.0, 1.5, -2.0, float("nan")]
+# the bits the JAX package's broadcast gives back for SYNC_SIGNED: the sign
+# of -0.0 kept at one worker only (its masked sum has one term)
+SYNC_SIGNED_BITS = {1: [0x80000000, 0, 0x3FC00000, 0xC0000000, 0x7FC00000],
+                    2: [0, 0, 0x3FC00000, 0xC0000000, 0x7FC00000]}
+
+
+def sync_bits_phase(torch, SimMesh, pdist):
+    """(b): the broadcast's bits on the card at W = 1, 2 and 4 (held once
+    and per worker), and the canonical reduce's bfloat16 tree at W = 4 on
+    the card bit-equal to the CPU's."""
+    got = {}
+    for w in (1, 2, 4):
+        ctx = SimMesh(w).ctx(sync_mode="broadcast")
+        x = torch.tensor(SYNC_SIGNED, device="cuda")
+        for layout, out in (
+                ("held_once", ctx.broadcast_flat([x])[0]),
+                ("per_worker", ctx.broadcast_flat([x.expand(w, 5).contiguous()],
+                                                  stacked=True)[0])):
+            got[f"W={w} {layout}"] = [v & 0xFFFFFFFF for v in
+                                      out.view(torch.int32).tolist()]
+    gen = torch.Generator().manual_seed(18)
+    rows = (torch.randn(4, 1 << 16, generator=gen)
+            * torch.tensor([1.0, 300.0, 1e-2, 7.0])[:, None]).to(torch.bfloat16)
+    tree_equal = torch.equal(pdist._tree_sum(rows.cuda()).cpu().view(torch.int16),
+                             pdist._tree_sum(rows).view(torch.int16))
+    print(json.dumps({"check": "sync bits", "broadcast": got,
+                      "bf16_tree_card_equal_to_cpu": tree_equal}), flush=True)
+    bad = [k for k, v in got.items()
+           if v != SYNC_SIGNED_BITS[min(int(k[2]), 2)]]
+    if bad or not tree_equal:
+        raise AssertionError(f"sync bits: {bad}, bfloat16 tree equal {tree_equal}")
+
+
+def sync_small_phase(torch, pmods, compressors, kernel_mods, n_buckets):
+    """(b): reduced Llama-3-8B at W = 2, SYNC_SMALL_STEPS steps under the
+    mode, card against CPU; the card's launches read after each step
+    (every launch count set to 0 after each step on either device) and
+    its drift metrics held (0.0 but the error buffers').  Returns {path:
+    launches}."""
+    psgd = {"lowrank_project": n_buckets, "lowrank_backproject": n_buckets}
+    paths = {
+        "powersgd": (lambda: compressors.make_compressor("powersgd", rank=RANK),
+                     check_powersgd_parity, 0, psgd),
+        "powersgd k=1": (lambda: compressors.make_compressor("powersgd", rank=RANK),
+                         check_powersgd_parity, 1, psgd),
+        "top_k_int4": (lambda: compressors.make_compressor(
+            "top_k", rank=RANK, wire_dtype="int4"), check_topk_parity, 0,
+                       {"nibble_pack": 1, "nibble_unpack": 1})}
+    out = {}
+    for path, (make, check, k, per_step) in paths.items():
+        launches, drifts = [], []
+
+        def after_step(dev, i, ef):
+            if dev == "cuda":
+                launches.append(read_all_launches(kernel_mods))
+            reset_all_launches(kernel_mods)
+
+        reset_all_launches(kernel_mods)
+        parity_phase(torch, pmods, f"sync {path}", make, check,
+                     steps=SYNC_SMALL_STEPS, start_compress_step=k,
+                     after_step=after_step, sync_mode="broadcast",
+                     metrics_log=drifts)
+        card = [d for dev, _, d in drifts if dev == "cuda"]
+        cpu = [d for dev, _, d in drifts if dev == "cpu"]
+        want = [{name: (per_step.get(name, 0) if i >= k else 0)
+                 for name in launches[0]} for i in range(SYNC_SMALL_STEPS)]
+        print(json.dumps({"check": "sync reduced", "path": path,
+                          "start_compress_step": k, "drift_card": card,
+                          "drift_cpu": cpu, "launches_per_step": launches}),
+              flush=True)
+        if launches != want:
+            raise AssertionError(f"sync {path}: launches per step {launches}, "
+                                 f"want {want}")
+        if not all(d["drift_params"] == d["drift_momentum"] == d["drift_q"] == 0.0
+                   for d in card):
+            raise AssertionError(f"sync {path}: drift on the card {card}")
+        out[f"reduced {path}"] = {name: sum(row[name] for row in launches)
+                                  for name in launches[0]}
+    return out
+
+
+def dist_sync(torch, mods, kernel_mods, cfg, CollectiveStats, pdist, n_buckets,
+              smi, batches):
+    """(c), inside phase 5's group: DIST_STEPS PowerSGD steps of
+    ``make_train_step`` at full width under ``TrainHyper(sync_mode=
+    "broadcast", track_drift=True)``, against ``make_sim_train_step`` on
+    ``SimMesh(1)`` under the same: losses and parameters bit-equal, the
+    same records and drifts.  The calls a step: 2 ``all_gather`` (the
+    canonical reduces), 1 ``broadcast`` for the fused sync and one per
+    float leaf the drift probe compares, and ``all_reduce`` once for the
+    loss and once for each of the probe's 4 maxima.  Every launch count
+    and the calls are set to 0 just before the distributed run and read
+    just after.  Returns its launches."""
+    tree = mods[1]
+    hyper = mods[0].TrainHyper(sync_mode="broadcast", track_drift=True)
+    runs = {}
+    for mode in ("sim", "dist"):
+        stats = CollectiveStats()
+        reset_all_launches(kernel_mods)
+        pdist.reset_calls()
+        losses, ms, peak, params, run = dist_run(torch, mods, cfg, mode, None,
+                                                 stats, batches, hyper)
+        runs[mode] = {"losses": losses, "step_ms": ms, "peak_gib": peak,
+                      "calls": dict(pdist.CALLS),
+                      "launches": read_all_launches(kernel_mods),
+                      "records": collective_records(stats),
+                      "drift": [r["drift"] for r in run["steps"]],
+                      "params": tree.leaves(params)}
+        counts = (len(tree.leaves(params)),
+                  sum(q is not None for q in tree.leaves(run["ef"].comp)))
+        del params, run
+    bit_equal = (runs["dist"]["losses"] == runs["sim"]["losses"] and all(
+        torch.equal(a, b) for a, b in zip(runs["dist"]["params"],
+                                          runs["sim"]["params"])))
+    for r in runs.values():
+        del r["params"]
+    torch.cuda.empty_cache()
+    n_leaves, n_factors = counts
+    want_calls = {"all_reduce": (1 + 4) * DIST_STEPS, "all_gather": 2 * DIST_STEPS,
+                  "broadcast": (1 + 3 * n_leaves + n_factors) * DIST_STEPS}
+    d = runs["dist"]
+    ctx = pdist.MeshCtx(data_axes=("data",), sync_mode="broadcast",
+                        backend=pdist.DistBackend())
+    signed = ctx.broadcast_flat([torch.tensor(SYNC_SIGNED, device="cuda")])[0]
+    signed = [v & 0xFFFFFFFF for v in signed.view(torch.int32).tolist()]
+    row = {"check": "sync dist", "card": smi, "steps": DIST_STEPS,
+           "bit_equal_to_sim": bit_equal, "broadcast_bits_world_1": signed,
+           **{f"{k}_{n}": runs[n][k] for n in runs
+              for k in ("losses", "step_ms", "calls", "drift", "peak_gib")},
+           "want_calls": want_calls, "launches": d["launches"]}
+    print(json.dumps(row), flush=True)
+    problems = []
+    if not bit_equal:
+        problems.append("the distributed run is not the simulated one")
+    if signed != SYNC_SIGNED_BITS[1]:
+        problems.append(f"the broadcast at world size 1 gave {signed}")
+    if d["records"] != runs["sim"]["records"] or d["drift"] != runs["sim"]["drift"]:
+        problems.append("records or drifts differ from the simulated run's")
+    if d["records"][0] != ["reduce", "reduce", "broadcast"] * DIST_STEPS:
+        problems.append(f"records {d['records'][0]}")
+    if d["calls"] != want_calls:
+        problems.append(f"calls {d['calls']}, want {want_calls}")
+    if not all(x["drift_params"] == x["drift_momentum"] == x["drift_q"]
+               == x["drift_error"] == 0.0 for x in d["drift"]):
+        problems.append(f"drift {d['drift']} at world size 1")
+    want = {name: 0 for name in d["launches"]}
+    want.update(lowrank_project=DIST_STEPS * n_buckets,
+                lowrank_backproject=DIST_STEPS * n_buckets)
+    if d["launches"] != want:
+        problems.append(f"launches {d['launches']}, want {want}")
+    if problems:
+        raise AssertionError(f"sync dist: {problems}")
+    return d["launches"]
 
 
 def int4_chunk(torch, cfg, model, matrixize, tree, workers, scheme="top_k"):
@@ -4397,7 +4722,7 @@ def main() -> None:
     warmup_launches = warmup_small_phase(
         torch, pmods, compressors, kernel_mods,
         len(bench.model_buckets(llama3_8b.reduced_config())))
-    warmup_launches["llama powersgd"] = warmup_llama_phase(
+    warmup_launches["llama powersgd"], warmup_peak = warmup_llama_phase(
         torch, tmods, kernel_mods, cfg, compressors, CollectiveStats,
         len(buckets), psgd_run, smi)
     print(f"warmup: {time.perf_counter() - t_warmup:.1f} s (and (c) in phase 5)")
@@ -4480,6 +4805,17 @@ def main() -> None:
                                                   kernel_mods, smi)
     print(f"staleness: {time.perf_counter() - t_stale:.1f} s (and (c) in phase 5)")
 
+    # -- 18. replica-deterministic aggregation --------------------------------
+    t_sync = time.perf_counter()
+    sync_launches = {"llama powersgd": sync_llama_phase(
+        torch, tmods, kernel_mods, cfg, CollectiveStats, len(buckets), psgd_run,
+        warmup_peak, smi)}
+    sync_bits_phase(torch, SimMesh, pdist)
+    sync_launches.update(sync_small_phase(
+        torch, pmods, compressors, kernel_mods,
+        len(bench.model_buckets(llama3_8b.reduced_config()))))
+    print(f"sync: {time.perf_counter() - t_sync:.1f} s (and (c) in phase 5)")
+
     # launches of each kernel on every path this run drove
     paths = {"llama powersgd": psgd, "llama top_k_int4": topk,
              **{f"dist {k}": v for k, v in dist_launches.items()},
@@ -4493,7 +4829,8 @@ def main() -> None:
              **{f"adaptive {k}": v for k, v in adaptive_launches.items()},
              **{f"orthogonalizers llama {k}": v for k, v in orth_launches.items()},
              **tuned_launches, "checkpoint llama powersgd": ckpt_launches,
-             **{f"staleness {k}": v for k, v in stale_launches.items()}}
+             **{f"staleness {k}": v for k, v in stale_launches.items()},
+             **{f"sync {k}": v for k, v in sync_launches.items()}}
     by_path = lambda kernel: {p: v[kernel] for p, v in paths.items() if v[kernel]}
 
     summary = []

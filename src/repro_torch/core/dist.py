@@ -16,8 +16,13 @@ The context's backend says how a data-axis collective runs:
   tensors): every tensor is the process's own (``ctx.lead == ()``), a mean
   is a real ``all_reduce`` and a gather a real ``all_gather``.
 
-Not ported yet: model-axis collectives (ROADMAP queue A, item 14),
-``broadcast_flat`` and ``sync_mode="broadcast"`` (item 13).
+``sync_mode="broadcast"`` makes every data-axis aggregate
+replica-deterministic: each reduce gathers the contributions in rank order
+and sums them in one fixed pairwise tree (:func:`_tree_sum`), the same
+expression on every rank and on both backends; fused transports defer the
+replica sync to one rank-0 broadcast (:meth:`MeshCtx.broadcast_flat`).
+
+Not ported yet: model-axis collectives (ROADMAP queue A, item 14).
 """
 
 from __future__ import annotations
@@ -46,8 +51,10 @@ class CollectiveStats:
     Each record holds the elements per worker (``sizes``), the wire bytes
     per element (``itemsizes``: fractional 0.5 for nibble-packed int4),
     the ``kind`` (``"reduce"``: flat in W; ``"gather"``: every worker
-    receives ``fanout`` = W payloads) and the scale-sidecar bytes of a
-    quantized chunk (``overheads``).
+    receives ``fanout`` = W payloads; ``"broadcast"``: rank 0's payload
+    delivered to every worker under ``sync_mode="broadcast"``, flat in W,
+    ``fanout`` 1) and the scale-sidecar bytes of a quantized chunk
+    (``overheads``).
     """
 
     data_collectives: int = 0
@@ -59,7 +66,7 @@ class CollectiveStats:
 
     def record(self, n_elems: int, itemsize: float = 4, kind: str = "reduce",
                fanout: int = 1, overhead: int = 0) -> None:
-        if kind not in ("reduce", "gather"):
+        if kind not in ("reduce", "gather", "broadcast"):
             raise ValueError(f"unknown collective kind {kind!r}")
         self.data_collectives += 1
         self.sizes.append(int(n_elems))
@@ -82,6 +89,10 @@ class CollectiveStats:
     @property
     def gather_collectives(self) -> int:
         return sum(1 for k in self.kinds if k == "gather")
+
+    @property
+    def broadcast_collectives(self) -> int:
+        return sum(1 for k in self.kinds if k == "broadcast")
 
     def bytes_per_collective(self) -> List[float]:
         """Wire bytes each worker receives per collective: ``size·itemsize
@@ -108,6 +119,39 @@ def worker_sum(x: torch.Tensor) -> torch.Tensor:
     for xi in x[1:]:
         acc += xi
     return acc
+
+
+def _tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the leading worker dim of a stacked ``(W, ...)`` tensor in
+    one fixed pairwise tree, the canonical order of
+    ``sync_mode="broadcast"``: adjacent rows are added in pairs, an odd
+    last row is carried on unchanged, and the halving repeats until one row
+    is left.  Every add runs in ``x``'s dtype (a bfloat16 buffer rounds
+    after each add), so every rank and both backends replay the same
+    expression and get the same bits, the JAX package's too.  Not
+    :func:`worker_sum`'s left fold, nor ``torch.sum``'s order.  Returns a
+    new tensor; ``x`` is never written."""
+    n = x.shape[0]
+    if n == 1:
+        return x[0].clone()
+    while n > 1:
+        half = n // 2
+        paired = x[0:2 * half:2] + x[1:2 * half:2]
+        if n % 2:
+            paired = torch.cat([paired, x[2 * half:]])
+        x, n = paired, n - half
+    return x[0]
+
+
+def _from_rank0(x: torch.Tensor, workers: int) -> torch.Tensor:
+    """Rank 0's ``x`` as the JAX package's broadcast delivers it to each of
+    ``workers`` ranks: a masked unweighted sum, rank 0's value plus W − 1
+    exact zeros.  At W ≥ 2 that sum turns −0.0 into +0.0 and leaves every
+    other value as it is, a NaN with its payload too; at W = 1 it has one
+    term and keeps the sign.  Written as a select of the zeros, not an add,
+    since an add on the card would write its own NaN (0x7FFFFFFF) where
+    the reference keeps the input's.  A new tensor."""
+    return x.clone() if workers == 1 else x.masked_fill(x == 0, 0)
 
 
 def weighted_mean(x: torch.Tensor, w: torch.Tensor, sum_fn,
@@ -185,6 +229,19 @@ class SimBackend:
         payload."""
         return x
 
+    def broadcast0(self, x: torch.Tensor, stacked: bool = False) -> torch.Tensor:
+        """Worker 0's copy of ``x``, held once (:func:`_from_rank0`'s bits):
+        row 0 of a stacked ``(W, ...)`` tensor, or a held-once ``x`` itself
+        (``stacked=False``).  Scenario weights never apply: a broadcast is a
+        replica sync, not an aggregate, so a dropped worker 0 still
+        delivers its copy."""
+        return _from_rank0(x[0] if stacked else x, self.workers)
+
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        """Max over the leading worker dim of a stacked ``(W, ...)``
+        tensor."""
+        return x.amax(dim=0)
+
 
 # the process-group backend that carries tensors of each device type
 DEVICE_BACKENDS = {"cpu": "gloo", "cuda": "nccl"}
@@ -202,7 +259,7 @@ def check_backend_device(backend: str, device) -> None:
 
 
 # torch.distributed calls made by every DistBackend of this process, by kind
-CALLS = {"all_reduce": 0, "all_gather": 0}
+CALLS = {"all_reduce": 0, "all_gather": 0, "broadcast": 0}
 
 
 def reset_calls() -> None:
@@ -263,16 +320,58 @@ class DistBackend:
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every worker's ``x``, stacked in rank order: ``(W,) + x.shape``."""
+        return self.all_gather_issue(x)()
+
+    def all_gather_issue(self, x: torch.Tensor) -> Callable[[], torch.Tensor]:
+        """:meth:`all_gather` in two halves: the ``all_gather_into_tensor``
+        is issued now (``async_op=True``, counted in :data:`CALLS` now),
+        and the returned function waits on it and returns the stack."""
         out = x.new_empty(self.workers * x.numel())
-        tdist.all_gather_into_tensor(out, x.reshape(-1), group=self.group)
+        work = tdist.all_gather_into_tensor(out, x.reshape(-1), group=self.group,
+                                            async_op=True)
         CALLS["all_gather"] += 1
-        return out.view((self.workers,) + tuple(x.shape))
+
+        def wait() -> torch.Tensor:
+            work.wait()
+            return out.view((self.workers,) + tuple(x.shape))
+        return wait
+
+    def broadcast0(self, x: torch.Tensor, stacked: bool = False) -> torch.Tensor:
+        """Rank 0's ``x`` on every rank: a ``broadcast`` of a copy (half an
+        all-reduce's bytes), then :func:`_from_rank0`'s −0.0 → +0.0 on
+        every rank where the group has two or more, so the bits are those
+        of the JAX package's masked sum (and of
+        :meth:`SimBackend.broadcast0`).  ``stacked`` is ignored: a process
+        holds only its own tensors."""
+        buf = x.clone(memory_format=torch.contiguous_format)
+        src = 0 if self.group is None else tdist.get_global_rank(self.group, 0)
+        tdist.broadcast(buf, src=src, group=self.group)
+        CALLS["broadcast"] += 1
+        return buf if self.workers == 1 else buf.masked_fill_(buf == 0, 0)
+
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        """Max over the group: a ``MAX`` all-reduce of a copy."""
+        buf = x.clone(memory_format=torch.contiguous_format)
+        tdist.all_reduce(buf, op=tdist.ReduceOp.MAX, group=self.group)
+        CALLS["all_reduce"] += 1
+        return buf
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshCtx:
     """Names of the data axes the computation is mapped over.
 
+    sync_mode: ``"allreduce"`` (default) trusts the backend's reduce to
+             hand every rank the same value, which a library reduce whose
+             order depends on the rank does not promise at the last bit.
+             ``"broadcast"`` makes every data-axis aggregate
+             replica-deterministic: the contributions are gathered in rank
+             order and summed in one canonical pairwise tree
+             (:func:`_tree_sum`) on every rank, and each reduce is recorded
+             as its two logical legs, ``"reduce"`` + ``"broadcast"``.  A
+             fused transport passes ``sync=False`` to its phase reduces and
+             sends one real rank-0 broadcast at the end of the step
+             (:meth:`broadcast_flat`).
     stats:   optional :class:`CollectiveStats` (excluded from eq).
     backend: how the data-axis collectives run (:class:`SimBackend` or
              :class:`DistBackend`); given exactly when ``data_axes`` is
@@ -286,10 +385,8 @@ class MeshCtx:
         default=None, compare=False)
 
     def __post_init__(self):
-        if self.sync_mode != "allreduce":
-            raise NotImplementedError(
-                f"sync_mode={self.sync_mode!r} is not ported yet (ROADMAP "
-                f"queue A, item 13)")
+        if self.sync_mode not in ("allreduce", "broadcast"):
+            raise ValueError(f"unknown sync_mode {self.sync_mode!r}")
         if bool(self.data_axes) != (self.backend is not None):
             raise ValueError("a MeshCtx has a backend exactly when it has "
                              "data axes")
@@ -322,20 +419,67 @@ class MeshCtx:
         for int4) plus the scale-sidecar bytes of a quantized chunk."""
         self._record(chunk.size, chunk.wire_itemsize, kind, chunk.overhead_bytes)
 
-    def pmean_data(self, x: torch.Tensor) -> torch.Tensor:
-        """Mean over the data axes of one per-worker tensor."""
-        self._record(math.prod(x.shape[len(self.lead):]), x.dtype.itemsize)
-        return self.backend.pmean(x) if self.data_axes else x
+    @property
+    def _synced(self) -> bool:
+        return self.sync_mode == "broadcast" and bool(self.data_axes)
 
-    def psum_data(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum over the data axes of one per-worker tensor (recorded as a
-        reduce, as :meth:`pmean_data` is)."""
-        self._record(math.prod(x.shape[len(self.lead):]), x.dtype.itemsize)
-        return self.backend.psum(x) if self.data_axes else x
+    def _canonical_reduce(self, stacked: torch.Tensor, *,
+                          mean: bool) -> torch.Tensor:
+        """The replica-deterministic sum or mean of ``sync_mode=
+        "broadcast"`` over ``stacked``, every worker's contribution in rank
+        order (:class:`SimBackend`'s stacked buffer as it is,
+        :class:`DistBackend`'s all-gather): :func:`_tree_sum`, the mean
+        divided by W in the buffer's dtype.  A weighted
+        :class:`SimBackend` follows the JAX package's recipe, which is not
+        :func:`stacked_weighted_mean`'s: the weights are cast to the
+        buffer's dtype before the multiply, the sum Σwᵢxᵢ runs in the
+        tree, and the mean divides it in float32 by the tree sum of the
+        float32 weights, held at float32's smallest normal (an all-dropped
+        round gives exactly zero), then casts back."""
+        weights = getattr(self.backend, "weights", None)
+        if weights is None:
+            total = _tree_sum(stacked)
+            return total.div_(self.data_size()) if mean else total
+        numer = _tree_sum(stacked * _per_worker_view(weights, stacked).to(
+            stacked.dtype))
+        if not mean:
+            return numer
+        denom = torch.clamp_min(_tree_sum(weights),
+                                torch.finfo(weights.dtype).tiny)
+        return (numer.to(weights.dtype) / denom).to(stacked.dtype)
+
+    def _reduce(self, x: torch.Tensor, n_elems: int, *, mean: bool,
+                sync: Optional[bool]) -> torch.Tensor:
+        """:meth:`pmean_data` / :meth:`psum_data` after the reduce record."""
+        if not self.data_axes:
+            return x
+        if self._synced:
+            if sync is not False:
+                self._record(n_elems, x.dtype.itemsize, "broadcast")
+            return self._canonical_reduce(self._gather(x), mean=mean)
+        return self.backend.pmean(x) if mean else self.backend.psum(x)
+
+    def pmean_data(self, x: torch.Tensor, *,
+                   sync: Optional[bool] = None) -> torch.Tensor:
+        """Mean over the data axes of one per-worker tensor.  Under
+        ``sync_mode="broadcast"`` the canonical reduce, recorded as a
+        reduce and a broadcast (``sync=False``: the reduce only)."""
+        n = math.prod(x.shape[len(self.lead):])
+        self._record(n, x.dtype.itemsize)
+        return self._reduce(x, n, mean=True, sync=sync)
+
+    def psum_data(self, x: torch.Tensor, *,
+                  sync: Optional[bool] = None) -> torch.Tensor:
+        """Sum over the data axes of one per-worker tensor (recorded as
+        :meth:`pmean_data` is)."""
+        n = math.prod(x.shape[len(self.lead):])
+        self._record(n, x.dtype.itemsize)
+        return self._reduce(x, n, mean=False, sync=sync)
 
     def pmean_flat(self, parts: Sequence[torch.Tensor], *,
                    wire_dtype: str = "auto",
                    max_chunk_bytes: Optional[int] = None,
+                   sync: Optional[bool] = None,
                    interleave: bool = False) -> List[torch.Tensor]:
         """Fused all-reduce-mean: one collective per wire chunk for a whole
         list of per-worker tensors (see :func:`matrixize.plan_flat` for the
@@ -357,13 +501,23 @@ class MeshCtx:
         is unpacked; :class:`SimBackend` reduces at issue.  Chunks, bytes,
         reduction order, the records (made at issue) and the
         ``torch.distributed`` calls are the serial schedule's, so the
-        result is bit for bit the same."""
+        result is bit for bit the same.
+
+        Under ``sync_mode="broadcast"`` each chunk takes the canonical
+        reduce (:meth:`_canonical_reduce`; under :class:`DistBackend` one
+        ``all_gather`` a chunk, issued asynchronously when interleaved and
+        summed after its wait) and records a broadcast leg after its
+        reduce: the wire buffer's elements at its own itemsize, float32
+        for a quantized chunk (the dequantized buffer).  ``sync=False``
+        keeps the canonical order and records the reduce only, for a
+        scheme that ends its step with one :meth:`broadcast_flat`."""
         parts = list(parts)
         if not parts:
             return []
         nl = len(self.lead)
         plan = matrixize.plan_flat(parts, wire_dtype=wire_dtype,
                                    max_chunk_bytes=max_chunk_bytes, lead=nl)
+        pipelined = interleave and isinstance(self.backend, DistBackend)
 
         def issue(chunk) -> Callable[[], torch.Tensor]:
             if chunk.quant is not None:
@@ -373,7 +527,15 @@ class MeshCtx:
             self._record_chunk(chunk, "reduce")
             if not self.data_axes:
                 return lambda: buf
-            if interleave and isinstance(self.backend, DistBackend):
+            if self._synced:
+                if sync is not False:
+                    self._record(chunk.size, buf.dtype.itemsize, "broadcast")
+                if pipelined:
+                    wait = self.backend.all_gather_issue(buf)
+                    return lambda: self._canonical_reduce(wait(), mean=True)
+                buf = self._canonical_reduce(self._gather(buf), mean=True)
+                return lambda: buf
+            if pipelined:
                 return self.backend.pmean_issue(buf)
             buf = self.backend.pmean(buf)
             return lambda: buf
@@ -390,6 +552,43 @@ class MeshCtx:
             pending = (chunk, result)
         if pending is not None:
             out.update(matrixize.unpack_flat(pending[0], pending[1]()))
+        return [out[i] for i in range(len(parts))]
+
+    def broadcast_flat(self, parts: Sequence[torch.Tensor], *,
+                       wire_dtype: str = "auto",
+                       max_chunk_bytes: Optional[int] = None,
+                       stacked: bool = False) -> List[torch.Tensor]:
+        """Fused rank-0 broadcast, the end-of-step replica sync of
+        ``sync_mode="broadcast"``: every part replaced by worker 0's copy,
+        held once.  Parts are packed into wire chunks as
+        :meth:`pmean_flat` packs them, and each chunk is one backend
+        ``broadcast0`` (the bits of the JAX package's masked sum: −0.0
+        comes back as +0.0 where W ≥ 2), recorded as ``kind="broadcast"``,
+        bytes flat in W.  Without data axes it records and returns the
+        parts' values.
+
+        ``stacked=False`` (the path's case): the parts are held once, as
+        the port holds every worker-identical aggregate (P̂, Q, the
+        uncompressed aggregates).  ``stacked=True``: under
+        :class:`SimBackend` the parts carry the worker dim and worker 0's
+        row is delivered, as the JAX package's per-worker broadcast does.
+        A quantized wire remaps to ``"auto"``: the sync delivers rank 0's
+        exact bits, not a requantization."""
+        if wire_dtype in matrixize.QUANT_WIRE_DTYPES:
+            wire_dtype = "auto"
+        parts = list(parts)
+        if not parts:
+            return []
+        nl = len(self.lead) if stacked else 0
+        plan = matrixize.plan_flat(parts, wire_dtype=wire_dtype,
+                                   max_chunk_bytes=max_chunk_bytes, lead=nl)
+        out: dict = {}
+        for chunk in plan.chunks:
+            buf = matrixize.pack_flat(chunk, parts, lead=nl)
+            self._record_chunk(chunk, "broadcast")
+            if self.data_axes:
+                buf = self.backend.broadcast0(buf, stacked=bool(nl))
+            out.update(matrixize.unpack_flat(chunk, buf))
         return [out[i] for i in range(len(parts))]
 
     def allgather_flat(self, parts: Sequence[torch.Tensor], *,

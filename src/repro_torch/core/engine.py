@@ -105,10 +105,23 @@ class Transport:
     wire_dtype: str = "auto"
     max_chunk_bytes: Optional[int] = None
 
-    def reduce_mean(self, parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        """Fused all-reduce-mean (one collective per wire chunk)."""
+    def reduce_mean(self, parts: Sequence[torch.Tensor],
+                    sync: Optional[bool] = None) -> List[torch.Tensor]:
+        """Fused all-reduce-mean (one collective per wire chunk).
+        ``sync=False`` (meaningful under ``sync_mode="broadcast"`` only)
+        marks a phase of a multi-reduce scheme: the canonical order, but no
+        broadcast leg recorded, since the scheme ends with one
+        :meth:`broadcast`."""
         return self.ctx.pmean_flat(parts, wire_dtype=self.wire_dtype,
-                                   max_chunk_bytes=self.max_chunk_bytes)
+                                   max_chunk_bytes=self.max_chunk_bytes,
+                                   sync=sync)
+
+    def broadcast(self, parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Fused rank-0 broadcast of held-once parts, the end-of-step
+        replica sync of ``sync_mode="broadcast"``
+        (:meth:`MeshCtx.broadcast_flat`)."""
+        return self.ctx.broadcast_flat(parts, wire_dtype=self.wire_dtype,
+                                       max_chunk_bytes=self.max_chunk_bytes)
 
     def gather(self, parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """Fused all-gather (one collective per wire chunk); every part comes
@@ -147,10 +160,11 @@ class PipelinedTransport(Transport):
       checkpoint carries it.
     """
 
-    def reduce_mean(self, parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    def reduce_mean(self, parts: Sequence[torch.Tensor],
+                    sync: Optional[bool] = None) -> List[torch.Tensor]:
         return self.ctx.pmean_flat(parts, wire_dtype=self.wire_dtype,
                                    max_chunk_bytes=self.max_chunk_bytes,
-                                   interleave=True)
+                                   sync=sync, interleave=True)
 
     @staticmethod
     def shift(fresh, inflight):

@@ -245,7 +245,10 @@ def _dense_step(compressor: Compressor, deltas, comp_state,
     """A warm-up step: the deltas reduced in one fused dense all-reduce on
     the compressor's wire, the reconstruction the deltas themselves, the
     compressor state passed through untouched.  ``bits_per_worker`` counts
-    every leaf at 32 bits per float, per worker (``ctx.lead`` stripped)."""
+    every leaf at 32 bits per float, per worker (``ctx.lead`` stripped).
+    Under ``sync_mode="broadcast"`` the reduce is the canonical one and
+    each chunk records a reduce and a broadcast leg, as the JAX package's
+    dense branch does."""
     leaves = tree.leaves(deltas)
     agg = ctx.pmean_flat(leaves,
                          wire_dtype=getattr(compressor, "wire_dtype", "auto"),

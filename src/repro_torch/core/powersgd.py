@@ -417,20 +417,30 @@ def compress_aggregate(cfg: PowerSGDConfig, deltas, state, specs,
                               max_chunk_bytes=cfg.max_chunk_bytes)
     m_bufs, q_bufs = payloads.m_bufs, payloads.q_bufs
 
+    # Under sync_mode="broadcast" the phase reduces take the canonical order
+    # and defer the replica sync (sync=False) to one fused rank-0 broadcast
+    # of what the update and the next step are built from: P̂, Q and the
+    # uncompressed aggregates (2 reduces + 1 broadcast a step)
     unc_agg = payloads.unc_values
     p_hats = q_locals = []
     for it in range(cfg.num_iters):
         p_locals = [ops.lowrank_project(mb, ctx.per_worker(qb))
                     for mb, qb in zip(m_bufs, q_bufs)]
         extra = unc_agg if it == 0 else []
-        reduced = transport.reduce_mean(p_locals + extra)
+        reduced = transport.reduce_mean(p_locals + extra, sync=False)
         p_bufs = reduced[:len(p_locals)]
         if it == 0:
             unc_agg = reduced[len(p_locals):]
         p_hats = [orth(p) for p in p_bufs]
         q_locals = [ops.lowrank_backproject(mb, ctx.per_worker(ph))
                     for mb, ph in zip(m_bufs, p_hats)]
-        q_bufs = transport.reduce_mean(q_locals)
+        q_bufs = transport.reduce_mean(q_locals, sync=False)
+
+    if ctx.sync_mode == "broadcast" and ctx.data_axes:
+        flat = transport.broadcast(p_hats + q_bufs + unc_agg)
+        p_hats = flat[:len(p_hats)]
+        q_bufs = flat[len(p_hats):len(p_hats) + len(q_bufs)]
+        unc_agg = flat[len(p_hats) + len(q_bufs):]
 
     agg_bufs = [ref.decompress(ph, qb) for ph, qb in zip(p_hats, q_bufs)]
     if cfg.error_mode == "local":

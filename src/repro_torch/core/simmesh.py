@@ -38,7 +38,7 @@ class SimMesh:
             raise ValueError(f"workers must be ≥ 1, got {self.workers}")
 
     def ctx(self, stats: Optional[CollectiveStats] = None, weights=None,
-            device=None) -> MeshCtx:
+            device=None, sync_mode: str = "allreduce") -> MeshCtx:
         """A :class:`MeshCtx` whose data axis is the stacked worker dim.
 
         ``weights`` — the workers' scenario weights for one step, a ``(W,)``
@@ -48,7 +48,13 @@ class SimMesh:
         (:class:`~repro_torch.core.dist.SimBackend`).  They are checked
         where they are given (host values on the host; a CUDA tensor costs
         a device sync) and held as float32 on ``device`` (default: where
-        they are).  Weights are per step, so build the context per step."""
+        they are).  Weights are per step, so build the context per step.
+
+        ``sync_mode="broadcast"`` selects the canonical reduction order
+        (:class:`~repro_torch.core.dist.MeshCtx`): the simulated mean is
+        already the same on every worker, but the canonical order makes
+        every collective result bit-equal to a ``torch.distributed`` run
+        in the same mode, and to the JAX package's in either substrate."""
         if weights is not None:
             weights = torch.as_tensor(weights, dtype=torch.float32)
             if tuple(weights.shape) != (self.workers,):
@@ -59,7 +65,7 @@ class SimMesh:
                                  f"got {weights.tolist()}")
             if device is not None:
                 weights = weights.to(device)
-        return MeshCtx(data_axes=(self.axis,), stats=stats,
+        return MeshCtx(data_axes=(self.axis,), sync_mode=sync_mode, stats=stats,
                        backend=SimBackend(workers=self.workers,
                                           weights=weights))
 

@@ -17,6 +17,11 @@ held at zero) before the compressor takes over, and
 in-flight tree in ``EFState.inflight``, the default compressor on the
 double-buffered transport), as
 :func:`repro_torch.core.error_feedback.apply_updates` describes.
+``sync_mode="broadcast"`` makes every aggregate replica-deterministic (the
+canonical reduce and the rank-0 broadcast of
+:class:`~repro_torch.core.dist.MeshCtx`), and ``track_drift`` adds the
+``drift_params``, ``drift_momentum``, ``drift_error`` and ``drift_q``
+metrics (:func:`replica_drift`).
 
 ``rank_schedule`` and ``track_residual`` pass to the default PowerSGD
 compressor.  The schedule is driven by the caller's loop, between steps:
@@ -38,8 +43,9 @@ takes the same switch.
 :func:`main` is the command-line entry point, ``python -m
 repro_torch.launch.train``: the JAX package's flags, printed lines,
 checkpoints (:mod:`repro_torch.checkpoint`, envelopes either package
-reads) and resume guards, one process per worker.  The model axis (tensor
-parallelism) waits for ROADMAP queue A, item 14.
+reads) and resume guards, one process per worker, ``--sync-mode
+broadcast`` included.  The model axis (tensor parallelism) waits for
+ROADMAP queue A, item 14.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import datetime
+import math
 import os
 import tempfile
 import time
@@ -89,6 +96,12 @@ class TrainHyper:
     #   pipeline: apply step t−1's aggregate while step t's is formed, the
     #   in-flight aggregate carried in EFState.inflight and the default
     #   compressor on the double-buffered PipelinedTransport
+    sync_mode: str = "allreduce"    # "broadcast" = replica-deterministic
+    #   data-axis aggregation (canonical reduction order + rank-0 broadcast;
+    #   see repro_torch.core.dist.MeshCtx) — bit-identical replicas where
+    #   the library's all-reduce order depends on the rank
+    track_drift: bool = False       # drift_{params,momentum,error,q} in the
+    #   step's metrics: the largest difference of each tree from rank 0's
 
 
 def _schedule(hyper: TrainHyper, step: int) -> float:
@@ -102,6 +115,36 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def replica_drift(ctx: MeshCtx, t, per_worker: bool = False) -> torch.Tensor:
+    """The largest absolute difference, in float32, of ``t``'s float leaves
+    from rank 0's copies over the data ranks: the drift probe behind
+    ``TrainHyper.track_drift``.  Rank 0's copy comes from the backend's
+    ``broadcast0`` and the worst difference from its ``pmax``, called on
+    the backend directly, so ``stats`` records neither.  Exactly 0.0
+    certifies bit-identical replicas of those leaves this step.
+
+    ``per_worker``: under :class:`~repro_torch.core.dist.SimBackend` the
+    leaves carry the worker dim (the error buffers) and each worker's row
+    is held against worker 0's; otherwise they are held once (parameters,
+    momentum, factors) and compared with worker 0's copy of themselves.
+    Under :class:`~repro_torch.core.dist.DistBackend` each leaf is the
+    process's own.  A tree without float leaves drifts 0.0."""
+    stacked = per_worker and bool(ctx.lead)
+    drifts = []
+    for x in tree.leaves(t):
+        if x is None or not x.is_floating_point():
+            continue
+        x = x.float()
+        ref = ctx.backend.broadcast0(x, stacked=stacked)
+        drifts += [torch.linalg.vector_norm(row - ref, ord=math.inf)
+                   for row in (x if stacked else (x,))]
+    if not drifts:
+        return torch.zeros((), dtype=torch.float32)
+    # the worst over this process's copies, then over the data ranks (each
+    # simulated worker holds that value)
+    return ctx.backend.pmax(torch.stack(drifts).amax().expand(ctx.lead))
 
 
 def grad_with_aux(loss_fn: Callable) -> Callable:
@@ -175,6 +218,11 @@ def _make_step(cfg: ModelConfig, hyper: TrainHyper,
                    "bits_per_worker": aux["bits_per_worker"]}
         if "residual_ratio" in aux:   # what a host-side RankController reads
             metrics["residual_ratio"] = ctx.backend.pmean(aux["residual_ratio"])
+        if hyper.track_drift:
+            for name, t in (("params", params), ("momentum", ef_state.momentum),
+                            ("error", ef_state.error), ("q", ef_state.comp)):
+                metrics[f"drift_{name}"] = replica_drift(
+                    ctx, t, per_worker=name == "error")
         return params, ef_state, metrics
 
     def init_state(generator: Optional[torch.Generator] = None):
@@ -219,7 +267,8 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper,
     dev = resolve_device(device)
     backend = DistBackend(group)
     backend.check_device(dev)
-    ctx = MeshCtx(data_axes=("data",), stats=stats, backend=backend)
+    ctx = MeshCtx(data_axes=("data",), sync_mode=hyper.sync_mode, stats=stats,
+                  backend=backend)
 
     def grads_fn(params, batch):
         grads, loss = local_grads(cfg, params, batch, q_chunk=hyper.q_chunk,
@@ -278,7 +327,8 @@ def make_sim_train_step(cfg: ModelConfig, sim, hyper: TrainHyper,
 
     def step_fn(params, ef_state: EFState, batch, seed=None, weights=None):
         return body(params, ef_state, batch,
-                    sim.ctx(stats=stats, weights=weights, device=dev), seed)
+                    sim.ctx(stats=stats, weights=weights, device=dev,
+                            sync_mode=hyper.sync_mode), seed)
 
     return step_fn, init_state
 
@@ -328,8 +378,7 @@ def main(argv=None) -> None:
     ``--arch`` with EF-PowerSGD, one worker per process of the default
     process group (or a one-rank group), on ``--device`` (the card unless
     told otherwise).  Flags, printed lines, checkpoints and resume guards
-    are the JAX package's; ``--sync-mode broadcast`` waits for ROADMAP queue
-    A, item 13."""
+    are the JAX package's."""
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
     ap.add_argument("--arch", default="llama3-8b")
     ap.add_argument("--steps", type=int, default=100)
@@ -344,8 +393,9 @@ def main(argv=None) -> None:
     ap.add_argument("--lr", type=float, default=0.05)
     ap.add_argument("--sync-mode", default="allreduce",
                     choices=("allreduce", "broadcast"),
-                    help="'broadcast' (replica-deterministic aggregates) is "
-                         "not ported yet (ROADMAP queue A, item 13)")
+                    help="'broadcast' makes every data-axis aggregate "
+                         "replica-deterministic (canonical reduction order "
+                         "+ rank-0 broadcast)")
     ap.add_argument("--wire-dtype", default="auto",
                     choices=matrixize.WIRE_DTYPES,
                     help="fused-collective wire policy: 'auto' keeps each "
@@ -378,10 +428,6 @@ def main(argv=None) -> None:
                  "ever be written)")
     if args.resume and not args.ckpt_dir:
         ap.error("--resume requires --ckpt-dir")
-    if args.sync_mode != "allreduce":
-        raise NotImplementedError(
-            f"--sync-mode {args.sync_mode!r} is not ported yet (ROADMAP "
-            f"queue A, item 13)")
 
     cfg = get_config(args.arch, reduced=True)
     dev = resolve_device(args.device)
@@ -405,7 +451,8 @@ def _train(args, cfg, dev) -> None:
     say = print if rank == 0 else (lambda *a, **k: None)
     hyper = TrainHyper(lr=args.lr, rank=args.rank, q_chunk=64,
                        warmup_steps=20, rank_schedule=args.rank_schedule,
-                       wire_dtype=args.wire_dtype, staleness=args.staleness)
+                       wire_dtype=args.wire_dtype, sync_mode=args.sync_mode,
+                       staleness=args.staleness)
     compressor = PowerSGDCompressor(
         rank=args.rank, rank_schedule=args.rank_schedule,
         wire_dtype=args.wire_dtype, pipeline=args.staleness == "one_step")

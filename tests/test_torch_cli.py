@@ -10,10 +10,10 @@ gloo group made by ``main`` itself.
   it: ``--ckpt-every`` or ``--resume`` without ``--ckpt-dir``, and a
   checkpoint of another rank schedule, staleness, wire dtype or data
   cursor.
-* ``--staleness one_step`` trains (the case keeps its id, ``item 12``);
-  ``--sync-mode broadcast`` raises naming ROADMAP queue A, item 13; an
-  architecture other than Llama-3-8B raises as ``get_config`` does (item
-  15).
+* ``--staleness one_step`` trains (the case keeps its id, ``item 12``),
+  and so does ``--sync-mode broadcast`` (``item 13``), on the plain run's
+  ``hex=`` at one rank; an architecture other than Llama-3-8B raises as
+  ``get_config`` does (item 15).
 * ``--staleness one_step`` stopped and resumed ends on the straight run's
   ``hex=``, the envelope carrying the in-flight aggregate.
 * Across packages: the JAX package's CLI (a process of its own, one CPU
@@ -181,11 +181,19 @@ def test_resume_guard_refuses(envelope, tmp_path, capsys, guard):
     (["--sync-mode", "broadcast"], "item 13"),
     (["--arch", "mamba2_1p3b"], "item 15")], ids=["item 12", "item 13", "item 15"])
 def test_unported_options_raise(capsys, argv, item):
-    """Items 13 and 15 raise naming their item; item 12, one-step
-    staleness, is ported: one step trains and ``main`` returns."""
+    """Item 15 raises naming its item; item 12, one-step staleness, is
+    ported: one step trains and ``main`` returns.  Item 13,
+    ``sync_mode="broadcast"``, is ported: two steps train and end on the
+    plain run's ``hex=`` (at one rank the canonical reduce of one row is
+    that row, divided by 1, and the broadcast delivers it unchanged)."""
     if item == "item 12":
         out = cli(capsys, "--steps", "1", *argv)
         assert "step    0 loss=" in out and final_hex(out)
+        return
+    if item == "item 13":
+        out = cli(capsys, "--steps", "2", *argv)
+        assert "step    0 loss=" in out
+        assert final_hex(out) == final_hex(cli(capsys, "--steps", "2"))
         return
     with pytest.raises(NotImplementedError, match=item):
         train.main([*SMALL, "--steps", "1", *argv])

@@ -55,6 +55,19 @@ one worker each, started once for the whole file.
   on ``SimMesh(4)`` (the in-flight aggregate within ``STATE_ATOL``).  In
   (a), ``pmean_flat(interleave=True)`` on every wire, chunked, bit for bit
   the serial schedule's result with its records and calls.
+* (j) ``sync_mode="broadcast"``: in (a)'s rows ``pmean_data``,
+  ``psum_data`` and ``pmean_flat`` (chunked, serial and interleaved: one
+  ``all_gather`` a chunk, summed in the canonical tree) bit for bit the
+  simulation's at W = 4 on the ``auto``, ``bfloat16`` and ``int4`` wires,
+  with its records; ``broadcast_flat`` of ``[-0.0, 0.0, 1.5, -2.0, nan]``
+  gives +0.0 as the simulation and the reference do, and rank 0's row
+  where the ranks differ.  ``SYNC_STEPS`` PowerSGD steps of
+  ``make_train_step`` under ``TrainHyper(sync_mode="broadcast",
+  track_drift=True)``: parameters, momentum and factors bit-identical on
+  the 4 ranks, ``drift_params``, ``drift_momentum`` and ``drift_q``
+  exactly 0.0, ``drift_error`` the same on every rank; the declared calls
+  (see :func:`test_sync_steps_identical_across_ranks`); each rank within
+  (b)'s tolerances of the port's ``SimMesh(4)`` under the mode.
 * (e) Two more schemes of the zoo, 2 steps each with one base seed:
   ``random_k`` (shared-seed draws on a reduce) and ``sign_norm`` (a
   gather of int8 signs and float norms).  Every rank draws the same
@@ -114,6 +127,9 @@ ZOO_SEED = 7          # the base seed every rank passes to the step
 WIRES = ("auto", "float32", "bfloat16", "int8", "int4")
 BF16_STEPS = 2        # (h)
 STALE_STEPS, STALE_CAP = 3, 1    # (i): a wire chunk for every part
+SYNC_STEPS = 3        # (j)
+SYNC_WIRES = ("auto", "bfloat16", "int4")
+SIGNED = np.array([-0.0, 0.0, 1.5, -2.0, np.nan], np.float32)
 RENDEZVOUS_S = 60     # init_process_group and every collective
 RESULTS_S = 140       # from the spawn to the last rank's result
 REDUCE_ATOL = 1e-6
@@ -150,11 +166,14 @@ def _hyper(start_compress_step=0, path="powersgd"):
     """``path`` "cholesky_qr": PowerSGD under ``TrainHyper``'s
     ``orthogonalizer="cholesky_qr"``."""
     orth = "cholesky_qr" if path == "cholesky_qr" else "gram_schmidt"
+    sync = path == "sync"
     return train.TrainHyper(q_chunk=16, warmup_steps=2,
                             start_compress_step=start_compress_step,
                             orthogonalizer=orth,
                             staleness=("one_step" if path.startswith("stale")
-                                       else "none"))
+                                       else "none"),
+                            sync_mode="broadcast" if sync else "allreduce",
+                            track_drift=sync)
 
 
 def _batches(vocab, steps):
@@ -245,6 +264,39 @@ def _rank_backend(rank, inputs):
     return out
 
 
+def _rank_sync(rank, inputs):
+    """(j): the collectives under ``sync_mode="broadcast"`` on this rank's
+    row of the inputs."""
+    mine = lambda parts: [torch.tensor(p[rank]) for p in parts]
+    stats = dist.CollectiveStats()
+    ctx = dist.MeshCtx(data_axes=("data",), sync_mode="broadcast", stats=stats,
+                       backend=dist.DistBackend())
+    out = {}
+    data = torch.tensor(inputs["data"][rank])
+    dist.reset_calls()
+    out["data"] = ([ctx.pmean_data(data).numpy(), ctx.psum_data(data).numpy(),
+                    ctx.pmean_data(data, sync=False).numpy()], _records(stats),
+                   dict(dist.CALLS))
+    for wire in SYNC_WIRES:
+        runs = []
+        for interleave in (False, True):
+            stats.reset()
+            dist.reset_calls()
+            red = ctx.pmean_flat(mine(inputs["reduce"]), wire_dtype=wire,
+                                 max_chunk_bytes=_reduce_cap(wire),
+                                 interleave=interleave)
+            runs.append(([x.numpy() for x in red], _records(stats),
+                         dict(dist.CALLS)))
+        out[("reduce", wire)] = runs
+    stats.reset()
+    dist.reset_calls()
+    signed = ctx.broadcast_flat([torch.tensor(SIGNED)])[0]
+    rows = ctx.broadcast_flat(mine(inputs["reduce"][:2]), stacked=True)
+    out["broadcast"] = ([signed.numpy()] + [x.numpy() for x in rows],
+                        _records(stats), dict(dist.CALLS))
+    return out
+
+
 def _reduce_cap(wire):
     """(a)'s chunked reduces: 28 elements a chunk on every wire, so the
     reduce parts travel in 4 or 5 chunks."""
@@ -266,7 +318,7 @@ def _rank_steps(rank, path, start, batches, start_compress_step=0):
                  comp=bridge.to_torch(start["comp"]),
                  inflight=(tree.map(torch.zeros_like, params)
                            if hyper.staleness == "one_step" else None))
-    losses, records, calls, error_zero = [], [], [], []
+    losses, records, calls, error_zero, drifts = [], [], [], [], []
     dist.reset_calls()
     for b in batches:
         stats.reset()
@@ -277,7 +329,9 @@ def _rank_steps(rank, path, start, batches, start_compress_step=0):
         records.append(_records(stats))
         calls.append(dict(dist.CALLS))
         error_zero.append(all(not e.any() for e in tree.leaves(ef.error)))
+        drifts.append({k: v.item() for k, v in m.items() if k.startswith("drift_")})
     out = {"losses": losses, "records": records, "step": ef.step,
+           "drifts": drifts,
            "calls": dict(dist.CALLS), "calls_after_step": calls,
            "error_zero": error_zero, "error": bridge.to_numpy(ef.error),
            "digests": {k: _digest(t) for k, t in (
@@ -399,6 +453,9 @@ def _rank_main(rank, rdzv, inputs, results):
         for path in ("stale", "stale_serial"):
             out[path] = _rank_steps(rank, path, inputs["start"]["powersgd"],
                                     inputs["batches"]["stale"])
+        out["sync_backend"] = _rank_sync(rank, inputs["backend"])
+        out["sync"] = _rank_steps(rank, "sync", inputs["start"]["powersgd"],
+                                  inputs["batches"]["sync"])
         results.put((rank, out))
     except BaseException:
         results.put((rank, traceback.format_exc()))
@@ -464,6 +521,7 @@ def _run_ranks():
     batches["adaptive"] = _batches(vocab, RANK_STEPS)
     batches["bf16"] = _batches(vocab, BF16_STEPS)
     batches["stale"] = _batches(vocab, STALE_STEPS)
+    batches["sync"] = _batches(vocab, SYNC_STEPS)
     refs = {p: _reference(p) for p in STEPS}
     refs["warmup"] = _reference("powersgd", start_compress_step=WARMUP_K)
     starts = {p: {"params": _np_tree(r[3], 0), "comp": _np_tree(r[4].comp, 0)}
@@ -665,9 +723,9 @@ def test_collectives_match_reference(run, path):
     add the loss's all-reduce, and a quantized gather's scale sidecar
     travels in a call of its own."""
     ref = run["reference"][path]["records"]
-    want_calls = {"powersgd": {"all_reduce": 3, "all_gather": 0},
-                  "cholesky_qr": {"all_reduce": 3, "all_gather": 0},
-                  "top_k": {"all_reduce": 2, "all_gather": 3}}[path]
+    want_calls = {"powersgd": {"all_reduce": 3, "all_gather": 0, "broadcast": 0},
+                  "cholesky_qr": {"all_reduce": 3, "all_gather": 0, "broadcast": 0},
+                  "top_k": {"all_reduce": 2, "all_gather": 3, "broadcast": 0}}[path]
     for r in range(W):
         got = run["ranks"][r][path]
         assert got["records"] == [ref] * STEPS[path]
@@ -734,7 +792,8 @@ def test_bf16_wire_steps_match_sim(run):
         np.testing.assert_allclose(got["losses"], losses, rtol=BF16_LOSS_RTOL)
         assert got["records"] == [got["records"][0]] * BF16_STEPS
         assert got["records"][0][:3] == (["reduce"] * 2, stats.sizes[:2], [2, 2])
-        assert got["calls"] == {"all_reduce": 3 * BF16_STEPS, "all_gather": 0}
+        assert got["calls"] == {"all_reduce": 3 * BF16_STEPS, "all_gather": 0,
+                                "broadcast": 0}
     for (p, g), w_ in zip(tree.items(run["ranks"][0]["bf16"]["params"]),
                           tree.leaves(params)):
         np.testing.assert_allclose(g, w_, atol=BF16_PARAM_ATOL, rtol=0,
@@ -781,7 +840,7 @@ def test_one_step_steps_match_sim_and_serial_schedule(run):
         chunks = len(got["records"][0][0])
         assert chunks > 2 and got["records"] == [got["records"][0]] * STALE_STEPS
         assert got["calls"] == {"all_reduce": (chunks + 1) * STALE_STEPS,
-                                "all_gather": 0}
+                                "all_gather": 0, "broadcast": 0}
     start = run["inputs"]["start"]["powersgd"]
     stats = dist.CollectiveStats()
     step, _ = train.make_sim_train_step(
@@ -815,6 +874,156 @@ def test_one_step_steps_match_sim_and_serial_schedule(run):
             np.testing.assert_allclose(g, w_, atol=atol, rtol=0,
                                        err_msg=f"{name} {list(p)}")
     assert any(np.abs(x).max() > 0 for x in tree.leaves(got["inflight"]))
+
+
+# ---------------------------------------------------------------------------
+# (j) sync_mode="broadcast"
+# ---------------------------------------------------------------------------
+
+def _sim_sync_ctx():
+    stats = dist.CollectiveStats()
+    return SimMesh(W).ctx(stats=stats, sync_mode="broadcast"), stats
+
+
+def _same_bits(a, b):
+    assert a.dtype == b.dtype and a.shape == b.shape
+    np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+def test_sync_reduces_bit_equal_to_sim(run):
+    """The canonical reduce over the process group (each chunk one
+    ``all_gather``, the rows summed in the tree on every rank) is the
+    simulation's bit for bit on the same rows, serial and interleaved, on
+    every wire of ``SYNC_WIRES`` (bfloat16 too, where a library sum would
+    not be), with the same records; ``sync=False`` records the reduce
+    alone."""
+    inputs = run["inputs"]["backend"]
+    ctx, stats = _sim_sync_ctx()
+    data = torch.tensor(inputs["data"])
+    want = [ctx.pmean_data(data).numpy(), ctx.psum_data(data).numpy(),
+            ctx.pmean_data(data, sync=False).numpy()]
+    want_records = _records(stats)
+    for r in range(W):
+        got, records, calls = run["ranks"][r]["sync_backend"]["data"]
+        for g, w_ in zip(got, want):
+            _same_bits(g, w_)
+        assert records == want_records
+        assert calls == {"all_reduce": 0, "all_gather": 3, "broadcast": 0}
+    assert want_records[0] == ["reduce", "broadcast", "reduce", "broadcast",
+                               "reduce"]
+    for wire in SYNC_WIRES:
+        ctx, stats = _sim_sync_ctx()
+        want = ctx.pmean_flat([torch.tensor(p) for p in inputs["reduce"]],
+                              wire_dtype=wire, max_chunk_bytes=_reduce_cap(wire))
+        for r in range(W):
+            for got, records, calls in run["ranks"][r]["sync_backend"][("reduce", wire)]:
+                for g, w_ in zip(got, want):
+                    _same_bits(g, w_.numpy())
+                assert records == _records(stats)
+                chunks = stats.reduce_collectives
+                assert chunks >= 4 and calls == {"all_reduce": 0,
+                                                 "all_gather": chunks,
+                                                 "broadcast": 0}
+        assert stats.broadcast_collectives == stats.reduce_collectives
+
+
+def test_sync_broadcast_bits(run):
+    """``broadcast_flat`` over the process group: +0.0 for −0.0 at W = 4
+    (the simulation's and the reference's bits), the NaN kept, and rank
+    0's row where the ranks' rows differ; one ``broadcast`` call a
+    chunk."""
+    ctx, stats = _sim_sync_ctx()
+    want = [ctx.broadcast_flat([torch.tensor(SIGNED)])[0].numpy()] + [
+        x.numpy() for x in ctx.broadcast_flat(
+            [torch.tensor(p) for p in run["inputs"]["backend"]["reduce"][:2]],
+            stacked=True)]
+    assert list(want[0].view(np.uint32)) == [0, 0, 0x3FC00000, 0xC0000000,
+                                             0x7FC00000]
+    for r in range(W):
+        got, records, calls = run["ranks"][r]["sync_backend"]["broadcast"]
+        for g, w_ in zip(got, want):
+            _same_bits(g, w_)
+        np.testing.assert_array_equal(got[1], run["inputs"]["backend"]["reduce"][0][0])
+        assert records == _records(stats)
+        assert calls == {"all_reduce": 0, "all_gather": 0,
+                         "broadcast": len(records[0])}
+
+
+def _leaf_counts(run):
+    params = bridge.to_torch(run["inputs"]["start"]["powersgd"]["params"])
+    comp = bridge.to_torch(run["inputs"]["start"]["powersgd"]["comp"])
+    return (len(tree.leaves(params)),
+            sum(q is not None for q in tree.leaves(comp)))
+
+
+def test_sync_steps_identical_across_ranks(run):
+    """``SYNC_STEPS`` PowerSGD steps under ``TrainHyper(sync_mode=
+    "broadcast", track_drift=True)``: parameters, momentum and factors
+    bit-identical on the 4 ranks, their drift exactly 0.0 in every step's
+    metrics, the error buffers' drift positive and the same on every
+    rank.  Records a step: 2 reduces and 1 broadcast (P̂ + Q + the
+    uncompressed leaves).  Calls a step: 2 ``all_gather`` (the canonical
+    reduces), 1 ``broadcast`` for the fused sync plus one per float leaf
+    the drift probe compares (parameters, momentum and error buffers, and
+    each factor), and ``all_reduce`` once for the loss and once for each
+    of the probe's 4 maxima."""
+    n_params, n_factors = _leaf_counts(run)
+    want_calls = {"all_reduce": 1 + 4, "all_gather": 2,
+                  "broadcast": 1 + 3 * n_params + n_factors}
+    ranks = [run["ranks"][r]["sync"] for r in range(W)]
+    assert all(o["digests"] == ranks[0]["digests"] for o in ranks)
+    for o in ranks:
+        assert o["step"] == SYNC_STEPS
+        for i, d in enumerate(o["drifts"]):
+            assert d["drift_params"] == d["drift_momentum"] == d["drift_q"] == 0.0
+            assert d["drift_error"] == ranks[0]["drifts"][i]["drift_error"] > 0.0
+        assert o["records"] == [o["records"][0]] * SYNC_STEPS
+        kinds, sizes = o["records"][0][:2]
+        assert kinds == ["reduce", "reduce", "broadcast"]
+        assert sizes[2] == sizes[0] + sizes[1]
+        assert o["calls"] == {k: v * SYNC_STEPS for k, v in want_calls.items()}
+
+
+def test_sync_steps_match_sim(run):
+    """Each rank within (b)'s tolerances of the port's ``SimMesh(4)`` run
+    under the mode from the same state: losses rtol 1e-5, parameters atol
+    2e-6, momentum and factors atol 1e-5; the same records and drifts of
+    0.0, the error buffers' drift within 2e-5."""
+    start = run["inputs"]["start"]["powersgd"]
+    stats = dist.CollectiveStats()
+    step, _ = train.make_sim_train_step(
+        llama3_8b.reduced_config(), SimMesh(W), _hyper(path="sync"),
+        stats=stats, device="cpu")
+    params = bridge.to_torch(start["params"])
+    ef = EFState(error=tree.map(lambda p: torch.zeros((W,) + tuple(p.shape)), params),
+                 momentum=tree.map(torch.zeros_like, params),
+                 comp=bridge.to_torch(start["comp"]))
+    losses, drifts = [], []
+    for b in run["inputs"]["batches"]["sync"]:
+        stats.reset()
+        params, ef, m = step(params, ef, SimMesh(W).shard(
+            {k: torch.tensor(v) for k, v in b.items()}))
+        losses.append(m["lm_loss"].item())
+        drifts.append({k: v.item() for k, v in m.items() if k.startswith("drift_")})
+    got = run["ranks"][0]["sync"]
+    assert got["records"][-1] == _records(stats)
+    for r in range(W):
+        np.testing.assert_allclose(run["ranks"][r]["sync"]["losses"], losses,
+                                   rtol=LOSS_RTOL)
+    for g, w_ in zip(got["drifts"], drifts):
+        assert w_["drift_params"] == w_["drift_momentum"] == w_["drift_q"] == 0.0
+        np.testing.assert_allclose(g["drift_error"], w_["drift_error"],
+                                   atol=2 * STATE_ATOL, rtol=0)
+    for name, want, atol in (("params", params, PARAM_ATOL),
+                             ("momentum", ef.momentum, STATE_ATOL),
+                             ("q", ef.comp, STATE_ATOL)):
+        for (p, g), w_ in zip(tree.items(got[name]),
+                              tree.leaves(bridge.to_numpy(want))):
+            if w_ is None:
+                assert g is None, p
+                continue
+            np.testing.assert_allclose(g, w_, atol=atol, rtol=0,
+                                       err_msg=f"{name} {list(p)}")
 
 
 # ---------------------------------------------------------------------------
