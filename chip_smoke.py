@@ -219,6 +219,17 @@ Phases, in order; any failure raises and the script exits non-zero:
               5's group, ``make_train_step`` on NCCL under the mode
               bit-equal to ``SimMesh(1)`` under it, with the declared
               ``torch.distributed`` calls.
+19. profiles — the benchmark profiles of ``repro_torch.bench.run``: (a)
+              ``comm_profile`` on phase 6's full width, per leaf against
+              bucketed (collectives, MB, B1b/B2b launches, host ms, peak);
+              (b) each profile's trace arm on reduced Llama-3-8B, card rows
+              equal to the CPU's, PowerSGD's int4 / int8 wire ≥ 4.0 / 3.9
+              times fewer bytes than float32, ``hidden_comm_pct`` ≥ 80,
+              and the int4 Top-K row's B4a/B4b launches; (c)
+              ``_wire_loss_run`` (int4) and ``_stale_loss_run`` (one-step,
+              dropout), PROFILE_LOSS_STEPS steps card against CPU under
+              phase 3's loss rule; (d) ``sync_mode_profile``'s gloo
+              measurement (4 CPU processes), PROFILE_SYNC_STEPS steps a mode.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after; the summary line gives each kernel's launches on every
@@ -4413,6 +4424,185 @@ def dist_sync(torch, mods, kernel_mods, cfg, CollectiveStats, pdist, n_buckets,
     return d["launches"]
 
 
+# -- phase 19: the benchmark profiles ------------------------------------------
+#
+# The five profiles of ``python -m repro_torch.bench.run`` (resume_overhead,
+# comm_profile, zoo_transport_profile, sync_mode_profile, overlap_profile)
+# run there at their full size; here each path they drive runs once, short:
+# (a) comm_profile's two engines on phase 6's full-width tree; (b) each
+# profile's trace arm on reduced Llama-3-8B (the tree ``bench.run`` gives
+# them), card rows equal to the CPU's (they depend on shapes alone) and
+# the trace-only rules; (c) the measured arms' loss runs, card against CPU
+# under phase 3's loss rule; (d) the gloo measurement of sync_mode_profile.
+
+PROFILE_LOSS_STEPS = 3     # (c), each run
+PROFILE_SYNC_STEPS = 2     # (d), each mode
+
+
+def profile_comm_llama(torch, tables, compressors, model, tree, kernel_mods, cfg,
+                       n_buckets, n_leaves, n_vectors):
+    """(a): ``comm_profile`` on phase 6's full-width tree (zero gradients):
+    its rows, then one step of each engine alone, every launch count set to
+    0 just before it: records, MB, B1b/B2b launches (one a matrix leaf per
+    leaf, one a bucket bucketed), host ms and peak GiB.  Returns {engine:
+    launches}."""
+    params = model.init(cfg, torch.Generator("cuda").manual_seed(0), device="cuda")
+    specs = model.mspecs(cfg)
+    rows = tables.comm_profile(params, specs)   # each engine's first step
+    zeros = tree.map(torch.zeros_like, params)
+    out = {}
+    for (mode, label), row in zip((("off", "per_leaf"), ("auto", "bucketed")), rows):
+        comp = compressors.PowerSGDCompressor(rank=RANK, bucketing=mode)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches(kernel_mods)
+        t0 = time.perf_counter()
+        _, stats = tables._trace(comp, params, specs, zeros)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = read_all_launches(kernel_mods)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        per = n_leaves if mode == "off" else n_buckets
+        want = {"lowrank_project": per, "lowrank_backproject": per,
+                "nibble_pack": 0, "nibble_unpack": 0, "ef_apply": 0}
+        collectives = 2 * n_leaves + n_vectors if mode == "off" else 2
+        mb = round(sum(stats.bytes_per_collective()) / 2**20, 4)
+        print(json.dumps({"check": "profile comm llama", "engine": label,
+                          "row": row, "collectives": stats.data_collectives,
+                          "mb": mb, "launches": launches, "host_ms": ms,
+                          "peak_gib": peak}), flush=True)
+        if (row["engine"], row["collectives_per_step"], row["total_mb_per_step"]) != (
+                label, stats.data_collectives, mb) or stats.data_collectives != collectives:
+            raise AssertionError(f"comm_profile {label}: row {row}, the step "
+                                 f"recorded {stats.data_collectives} collectives "
+                                 f"of {mb} MB, want {collectives}")
+        if launches != want:
+            raise AssertionError(f"comm_profile {label}: launches {launches}, "
+                                 f"want {want}")
+        out[label] = launches
+    del params, zeros
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_trace_phase(torch, tables, compressors, model, tree, kernel_mods, cfg,
+                        n_buckets, n_leaves):
+    """(b): each profile's trace arm on ``cfg`` (reduced Llama-3-8B), on
+    the card and on the CPU from the same parameters: rows equal; the
+    trace-only rules (PowerSGD's int4 / int8 wire at least 4.0 / 3.9 times
+    fewer bytes than float32; ``hidden_comm_pct`` ≥ 80 and the stale step
+    no longer than the synchronous one wherever W > 1); then the int4
+    Top-K row's step alone, which launches B4a/B4b once each.  Returns
+    {arm: launches}."""
+    specs = model.mspecs(cfg)
+    cpu = model.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = tree.map(lambda x: x.to("cuda"), cpu)
+    lowrank = lambda n: {"lowrank_project": n, "lowrank_backproject": n}
+    arms = {
+        "comm_profile": (lambda p, d: tables.comm_profile(p, specs, device=d),
+                         lowrank(n_leaves + n_buckets)),
+        "zoo_transport_profile": (
+            lambda p, d: tables.zoo_trace_rows(p, specs, device=d),
+            {**lowrank((1 + len(tables.QUANT_WIRES)) * n_buckets + n_leaves),
+             "nibble_pack": 2, "nibble_unpack": 2}),
+        "sync_mode_profile": (lambda p, d: tables.sync_mode_rows(p, specs, {},
+                                                                 device=d),
+                              lowrank(2 * n_buckets)),
+        "overlap_profile": (lambda p, d: tables.overlap_modeled_rows(p, specs,
+                                                                     device=d),
+                            lowrank(n_buckets))}
+    out, rows = {}, {}
+    for name, (arm, per) in arms.items():
+        want_rows = arm(cpu, "cpu")
+        reset_all_launches(kernel_mods)
+        t0 = time.perf_counter()
+        rows[name] = arm(card, None)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_all_launches(kernel_mods)
+        want = {k: per.get(k, 0) for k in launches}
+        print(json.dumps({"check": "profile trace", "profile": name,
+                          "rows": rows[name], "launches": launches,
+                          "seconds": seconds}), flush=True)
+        if rows[name] != want_rows:
+            raise AssertionError(f"{name}: card rows {rows[name]} against the "
+                                 f"CPU's {want_rows}")
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches}, want {want}")
+        out[name] = launches
+    ratio = {r["wire_dtype"]: r["wire_bytes_ratio_vs_float32"]
+             for r in rows["zoo_transport_profile"]
+             if r["algorithm"] == "powersgd" and "wire_bytes_ratio_vs_float32" in r}
+    if not (ratio["int4"] >= 4.0 and ratio["int8"] >= 3.9):
+        raise AssertionError(f"powersgd wire bytes against float32: {ratio}")
+    for r in rows["overlap_profile"]:
+        if r["workers"] > 1 and not (r["hidden_comm_pct"] >= 80
+                                     and r["stale_step_ms"] <= r["sync_step_ms"]):
+            raise AssertionError(f"overlap_profile modeled row fails: {r}")
+    grads = tree.map(lambda p: torch.ones_like(p) * 0.01, card)
+    reset_all_launches(kernel_mods)
+    tables._trace(compressors.make_compressor("top_k", rank=RANK, wire_dtype="int4"),
+                  card, specs, grads)
+    torch.cuda.synchronize()
+    launches = read_all_launches(kernel_mods)
+    want = {k: int(k.startswith("nibble")) for k in launches}
+    print(json.dumps({"check": "profile top_k int4 row", "launches": launches}),
+          flush=True)
+    if launches != want:
+        raise AssertionError(f"top_k int4 row: launches {launches}, want {want}")
+    out["zoo top_k int4 row"] = launches
+    return out
+
+
+def profile_loss_phase(torch, tables, kernel_mods, n_buckets):
+    """(c): the measured arms' runs, PROFILE_LOSS_STEPS steps of reduced
+    Llama-3-8B at W = 4 from the same initial state (drawn on the CPU):
+    ``_wire_loss_run`` on the int4 wire and ``_stale_loss_run`` one step
+    stale under a rotating dropped worker, card against CPU under phase
+    3's loss rule (1e-4 relative); the card's launches counted.  Returns
+    {run: launches}."""
+    steps = PROFILE_LOSS_STEPS
+    runs = {
+        "wire int4": lambda d: tables._wire_loss_run("int4", 4, steps, device=d),
+        "stale one_step dropout": lambda d: tables._stale_loss_run(
+            "one_step", 4, steps, tables.drop_rotating, device=d)}
+    out = {}
+    for name, run in runs.items():
+        l_cpu = run("cpu")
+        reset_all_launches(kernel_mods)
+        t0 = time.perf_counter()
+        l_card = run(None)
+        seconds = time.perf_counter() - t0
+        launches = read_all_launches(kernel_mods)
+        want = {k: (n_buckets * steps if k.startswith("lowrank") else 0)
+                for k in launches}
+        rel = max(abs(a - b) / abs(a) for a, b in zip(l_cpu, l_card))
+        print(json.dumps({"check": "card_vs_cpu", "path": f"profiles {name}",
+                          "losses_cpu": l_cpu, "losses_card": l_card,
+                          "max_rel_loss_diff": rel, "launches": launches,
+                          "seconds": seconds}), flush=True)
+        if not rel <= 1e-4:
+            raise AssertionError(f"profiles {name}: card and CPU losses "
+                                 f"{rel:.2e} apart (limit 1e-4)")
+        if launches != want:
+            raise AssertionError(f"profiles {name}: launches {launches}, want {want}")
+        out[name] = launches
+    return out
+
+
+def profile_sync_measure(tables):
+    """(d): ``sync_mode_profile``'s measured column, 4 gloo processes on the
+    CPU (a CPU time, not the card's), PROFILE_SYNC_STEPS steps a mode."""
+    t0 = time.perf_counter()
+    measured = tables._sync_measure(steps=PROFILE_SYNC_STEPS)
+    print(json.dumps({"check": "profile sync gloo", "seconds_per_step": measured,
+                      "steps": PROFILE_SYNC_STEPS,
+                      "wall_s": time.perf_counter() - t0}), flush=True)
+    if sorted(measured) != ["allreduce", "broadcast"] or not all(
+            math.isfinite(v) and v > 0 for v in measured.values()):
+        raise AssertionError(f"gloo measurement: {measured}")
+
+
 def int4_chunk(torch, cfg, model, matrixize, tree, workers, scheme="top_k"):
     """(chunk, parts, (workers, codes)): the int4 chunk ``scheme``'s gather
     packs each step on ``cfg``, the payload parts it plans from (meta
@@ -4816,6 +5006,22 @@ def main() -> None:
         len(bench.model_buckets(llama3_8b.reduced_config()))))
     print(f"sync: {time.perf_counter() - t_sync:.1f} s (and (c) in phase 5)")
 
+    # -- 19. the benchmark profiles -------------------------------------------
+    t_prof = time.perf_counter()
+    small = llama3_8b.reduced_config()
+    small_leaves = leaf_slabs(small, model, matrixize, tree, 1)[1]
+    n_small = len(bench.model_buckets(small))
+    profile_launches = {
+        f"comm llama {k}": v for k, v in profile_comm_llama(
+            torch, tables, compressors, model, tree, kernel_mods, cfg,
+            len(buckets), n_leaves, n_vectors).items()}
+    profile_launches.update(profile_trace_phase(
+        torch, tables, compressors, model, tree, kernel_mods, small, n_small,
+        small_leaves))
+    profile_launches.update(profile_loss_phase(torch, tables, kernel_mods, n_small))
+    profile_sync_measure(tables)
+    print(f"profiles: {time.perf_counter() - t_prof:.1f} s")
+
     # launches of each kernel on every path this run drove
     paths = {"llama powersgd": psgd, "llama top_k_int4": topk,
              **{f"dist {k}": v for k, v in dist_launches.items()},
@@ -4830,7 +5036,8 @@ def main() -> None:
              **{f"orthogonalizers llama {k}": v for k, v in orth_launches.items()},
              **tuned_launches, "checkpoint llama powersgd": ckpt_launches,
              **{f"staleness {k}": v for k, v in stale_launches.items()},
-             **{f"sync {k}": v for k, v in sync_launches.items()}}
+             **{f"sync {k}": v for k, v in sync_launches.items()},
+             **{f"profiles {k}": v for k, v in profile_launches.items()}}
     by_path = lambda kernel: {p: v[kernel] for p, v in paths.items() if v[kernel]}
 
     summary = []

@@ -1,7 +1,9 @@
-"""The benchmark LM every paper table trains, and the paper's α-β
-communication model (port of ``LMSpec``, ``_make_cfg``, ``payload_floats``,
-``train_lm``, ``comm_time``, ``broadcast_time``, ``measure_coding_time`` and
-``bytes_per_epoch_mb`` of the JAX package's ``benchmarks/common.py``).
+"""The benchmark LM every paper table trains, the paper's α-β
+communication model and the checkpoint profile (port of ``LMSpec``,
+``_make_cfg``, ``payload_floats``, ``train_lm``, ``resume_profile``,
+``comm_time``, ``broadcast_time``, ``comm_time_from_stats``,
+``measure_coding_time`` and ``bytes_per_epoch_mb`` of the JAX package's
+``benchmarks/common.py``).
 
 :func:`train_lm` trains a small dense transformer LM on order-1 Markov data
 under error feedback and a compressor, with W simulated workers on one
@@ -33,20 +35,24 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 
 import numpy as np
 import torch
 
 from repro_torch import tree
+from repro_torch.checkpoint import (TrainState, canonicalize_sim, replicate_sim,
+                                    restore_train_state, save_train_state)
 from repro_torch.configs.base import LayerSlot, ModelConfig
 from repro_torch.core import autotune, error_feedback, matrixize
-from repro_torch.core.compressors import Compressor
+from repro_torch.core.compressors import Compressor, PowerSGDCompressor
 from repro_torch.core.dist import SINGLE
 from repro_torch.core.error_feedback import EFState
 from repro_torch.core.simmesh import SimMesh
 from repro_torch.data.synthetic import MarkovLM
-from repro_torch.launch.train import resolve_device, worker_grads
+from repro_torch.launch.train import (TrainHyper, make_sim_train_step,
+                                      resolve_device, worker_grads)
 from repro_torch.models import model
 
 Q_CHUNK = 32
@@ -265,6 +271,157 @@ def train_lm(compressor: Compressor, spec: LMSpec = LMSpec(),
     return (result, params) if return_params else result
 
 
+def sim_start(cfg: ModelConfig, sim: SimMesh, hyper: TrainHyper, dev, *,
+              compressor: Compressor = None, seed: int = 0, params=None,
+              comp_state=None):
+    """``make_sim_train_step``'s initial ``(params, ef_state)`` on ``dev``,
+    drawn on the CPU from a generator seeded with ``seed`` (so the card
+    and the CPU start alike); ``params`` and ``comp_state`` (trees of
+    tensors, copied) replace the drawn parameters and compressor state."""
+    _, init = make_sim_train_step(cfg, sim, hyper, compressor=compressor,
+                                  device="cpu")
+    p, ef = init(torch.Generator().manual_seed(seed))
+    if comp_state is not None:
+        ef = dataclasses.replace(ef, comp=comp_state)
+    return _to(p if params is None else params, dev), ef.to(dev)
+
+
+# ---------------------------------------------------------------------------
+# fault-tolerant resume: what a checkpoint costs, and what each state piece
+# is worth
+# ---------------------------------------------------------------------------
+
+def resume_profile(spec: LMSpec, ckpt_dir: str, ckpt_every: int = 20, *,
+                   device=None) -> list:
+    """The checkpoint subsystem on the benchmark LM: ``spec.workers``
+    simulated workers under rank-2 PowerSGD through
+    :func:`~repro_torch.launch.train.make_sim_train_step` and
+    :mod:`repro_torch.checkpoint`, the path the CLI's resume takes, on
+    ``device`` (the CUDA card unless it says otherwise).  Rows, in the JAX
+    package's keys and order:
+
+    * ``uninterrupted``: the run to ``spec.steps``, saving every
+      ``ckpt_every`` steps and at 80 % of the horizon (the kill point);
+    * ``resume_full``: a new step and compressor restore the kill point's
+      envelope from ``ckpt_dir`` and continue; its per-step losses must be
+      bit-exact against the uninterrupted run's;
+    * ``resume_drop_ef``: the same with the error buffers zeroed;
+    * ``resume_drop_warm_start``: the same with the Q factors drawn anew
+      (a fresh compressor seeded 999);
+    * ``checkpoint_cost``: the envelope's MB, the mean save ms, the
+      restore ms and the saves' share of the training's wall time (host
+      clock, the device synchronized before each save).
+
+    The initial state is drawn on the CPU from ``spec.seed``."""
+    dev = resolve_device(device)
+    cfg = _make_cfg(spec)
+    specs = model.mspecs(cfg)
+    sim = SimMesh(spec.workers)
+    hyper = TrainHyper(lr=spec.lr, momentum=spec.momentum, q_chunk=Q_CHUNK,
+                       warmup_steps=20, weight_decay=0.0)
+
+    def build():
+        """A new "process": a new compressor and step."""
+        comp = PowerSGDCompressor(rank=2)
+        step, _ = make_sim_train_step(cfg, sim, hyper, compressor=comp,
+                                      device=dev)
+        return step, comp
+
+    data = lm_data(spec)
+    eval_data = eval_set(data, spec, 8, dev)
+
+    def batch_for(i):
+        toks = torch.tensor(data.sample(spec.batch_per_worker * spec.workers,
+                                        spec.seq, step=i), device=dev)
+        return sim.shard({"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+
+    # kill at 80 % of the horizon: early enough to resume, late enough that
+    # the degraded restores cannot wash out before the end
+    steps, mid = spec.steps, (4 * spec.steps) // 5
+    save_times, ckpt_bytes = [], 0
+
+    def run(step_fn, params, ef, start, stop, save_every=0):
+        nonlocal ckpt_bytes
+        losses = []
+        for i in range(start, stop):
+            params, ef, met = step_fn(params, ef, batch_for(i), seed=spec.seed)
+            losses.append(met["lm_loss"].item())
+            if save_every and ((i + 1) % save_every == 0 or i + 1 == mid):
+                sync(dev)
+                t0 = time.perf_counter()
+                p, e = canonicalize_sim(sim, params, ef)
+                path = save_train_state(
+                    ckpt_dir, TrainState(params=p, ef=e, seed=spec.seed,
+                                         data_step=e.step), keep=1000)
+                save_times.append(time.perf_counter() - t0)
+                ckpt_bytes = os.path.getsize(path)
+        return params, ef, losses
+
+    step_fn, comp = build()
+    params, ef = sim_start(cfg, sim, hyper, dev, compressor=comp, seed=spec.seed)
+    t0 = time.perf_counter()
+    params, ef, ref_losses = run(step_fn, params, ef, 0, steps,
+                                 save_every=ckpt_every)
+    train_wall = time.perf_counter() - t0
+    ref_eval = eval_loss(params, cfg, eval_data)
+
+    def resume(mutate=None):
+        """A new "process" restores the step-``mid`` envelope, optionally
+        degrades one piece of it, and continues to the horizon."""
+        step_fn, comp = build()
+        p0, e0 = sim_start(cfg, sim, hyper, dev, compressor=comp,
+                           seed=spec.seed)
+        template = TrainState(*canonicalize_sim(sim, p0, e0), seed=spec.seed)
+        t0 = time.perf_counter()
+        state, _ = restore_train_state(ckpt_dir, template, step=mid)
+        restore_s = time.perf_counter() - t0
+        ef = state.ef if mutate is None else mutate(state.ef)
+        params, ef = replicate_sim(sim, state.params, ef)
+        params, _, tail = run(step_fn, params, ef, mid, steps)
+        return eval_loss(params, cfg, eval_data), tail, restore_s
+
+    full_eval, full_tail, restore_s = resume()
+
+    def drop_ef(ef):
+        return dataclasses.replace(ef, error=tree.map(torch.zeros_like, ef.error))
+
+    shapes = tree.map(lambda x: torch.zeros(x.shape, dtype=x.dtype), params)
+
+    def drop_warm(ef):
+        comp = PowerSGDCompressor(rank=2).init(
+            shapes, specs, torch.Generator().manual_seed(999))
+        return error_feedback.replace_comp(ef, _to(comp, dev))
+
+    ef_eval, ef_tail, _ = resume(drop_ef)
+    warm_eval, warm_tail, _ = resume(drop_warm)
+
+    def spike(tail):
+        """The worst excess of the first 5 resumed steps' losses over the
+        full restore's: the re-absorption transient."""
+        return round(max(a - b for a, b in zip(tail[:5], full_tail[:5])), 4)
+
+    return [
+        {"mode": "uninterrupted", "eval_loss": round(ref_eval, 4),
+         "final_loss_hex": float(ref_losses[-1]).hex()},
+        {"mode": "resume_full", "eval_loss": round(full_eval, 4),
+         "bitexact_vs_uninterrupted": full_tail == ref_losses[mid:],
+         "final_loss_hex": float(full_tail[-1]).hex()},
+        {"mode": "resume_drop_ef", "eval_loss": round(ef_eval, 4),
+         "loss_cost_vs_full": round(ef_eval - full_eval, 4),
+         "post_resume_loss_spike": spike(ef_tail)},
+        {"mode": "resume_drop_warm_start", "eval_loss": round(warm_eval, 4),
+         "loss_cost_vs_full": round(warm_eval - full_eval, 4),
+         "post_resume_loss_spike": spike(warm_tail)},
+        {"mode": "checkpoint_cost",
+         "workers": spec.workers, "steps": steps, "ckpt_every": ckpt_every,
+         "ckpt_mb": round(ckpt_bytes / 1e6, 3),
+         "save_ms_mean": round(1e3 * float(np.mean(save_times)), 2),
+         "restore_ms": round(1e3 * restore_s, 2),
+         "save_overhead_pct_of_train":
+             round(100 * sum(save_times) / train_wall, 3)},
+    ]
+
+
 # ---------------------------------------------------------------------------
 # communication model (the paper's Appendix B cluster: 10 Gbit/s Ethernet)
 # ---------------------------------------------------------------------------
@@ -302,6 +459,30 @@ def broadcast_time(bytes_root: float, workers: int,
     rounds = math.ceil(math.log2(workers))
     return ((workers - 1) / workers * bytes_root / BW[backend]
             + LATENCY[backend] * rounds)
+
+
+def comm_time_from_stats(stats, workers: int, backend: str = "nccl_10gbit", *,
+                         overlap_compute_s: float = 0.0) -> float:
+    """Modeled seconds of one recorded step's gradient exchange: the α-β
+    model applied to each collective of a
+    :class:`~repro_torch.core.dist.CollectiveStats` trace at its own wire
+    bytes (``size · itemsize + overhead``: the fractional int4 itemsize and
+    the scale sidecar included), :func:`broadcast_time` for a
+    ``"broadcast"`` record and :func:`comm_time` otherwise (a reduce flat
+    in W, a gather paying the (W−1)-fold receive traffic).
+
+    ``overlap_compute_s`` models a pipelined (``staleness="one_step"``)
+    step whose exchange runs beside the next step's compute: the result
+    is then the exposed remainder, ``max(0, total − overlap)``."""
+    total = 0.0
+    for size, itemsize, kind, overhead in zip(stats.sizes, stats.itemsizes,
+                                              stats.kinds, stats.overheads):
+        nbytes = size * itemsize + overhead
+        if kind == "broadcast":
+            total += broadcast_time(nbytes, workers, backend)
+        else:
+            total += comm_time(nbytes, workers, kind == "reduce", backend)
+    return max(0.0, total - overlap_compute_s)
 
 
 def measure_coding_time(compressor: Compressor, params, specs,

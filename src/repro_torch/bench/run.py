@@ -1,22 +1,26 @@
-"""Run the paper's table drivers (:mod:`repro_torch.bench.tables`) and write
-each table's rows as JSON (port of the JAX package's ``benchmarks/run.py``).
+"""Run the paper's table drivers and the profiles
+(:mod:`repro_torch.bench.tables`) and write each one's rows as JSON (port
+of the JAX package's ``benchmarks/run.py``).
 
     python -m repro_torch.bench.run --only table3,fig3 --out OUT_DIR
     python -m repro_torch.bench.run --quick --only table1 --device cpu --out OUT_DIR
+    python -m repro_torch.bench.run --only comm_profile,overlap_profile --out OUT_DIR
 
 Prints ``table,key=value,...`` lines and writes ``OUT_DIR/<table>.json``.
 ``--only`` keeps the tables whose names contain one of its comma-separated
 parts; ``--quick`` trains 40 steps instead of the paper's 150 (Table 7:
-120).  Runs on the CUDA card unless ``--device`` says otherwise.  ``--out``
-is required, and may not point into ``experiments/benchmarks/``: the JAX
-package's records live there.
+120) and checkpoints ``resume_overhead`` every 10 steps instead of 20.
+Runs on the CUDA card unless ``--device`` says otherwise
+(``sync_mode_profile``'s measured column always runs on 4 gloo processes
+on the CPU).  ``--out`` is required, and may not point into
+``experiments/benchmarks/``: the JAX package's records live there.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
-import os
 import pathlib
 import time
 
@@ -25,13 +29,6 @@ import torch
 #: where the JAX package's benchmark records live (its docs tests read them)
 REFERENCE_RECORDS = (pathlib.Path(__file__).resolve().parents[3]
                      / "experiments" / "benchmarks")
-
-
-def _unported(name: str, item: str):
-    def run():
-        raise NotImplementedError(
-            f"{name} is not ported yet (ROADMAP queue A, item {item})")
-    return run
 
 
 def main(argv=None) -> None:
@@ -79,9 +76,12 @@ def main(argv=None) -> None:
                                                     device=dev),
         "adaptive_rank_profile": lambda: tables.adaptive_rank_profile(
             spec, device=dev),
-        **{name: _unported(name, "18") for name in (
-            "resume_overhead", "comm_profile", "sync_mode_profile",
-            "zoo_transport_profile", "overlap_profile")},
+        "resume_overhead": lambda: tables.resume_overhead(
+            spec, ckpt_every=10 if args.quick else 20, device=dev),
+        **{name: functools.partial(getattr(tables, name), params_small,
+                                   specs_small, device=dev)
+           for name in ("comm_profile", "sync_mode_profile",
+                        "zoo_transport_profile", "overlap_profile")},
         "appendixD_transformer": lambda: tables.appendixD_transformer(
             spec, device=dev),
     }

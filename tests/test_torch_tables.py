@@ -28,9 +28,11 @@ point (``repro_torch.bench.run``) and the α-β helpers of
   rows equal, the autotuned row's plan included.
 * ``bench/run.py``: ``--out`` required and kept out of
   ``experiments/benchmarks/``; ``--only`` matches parts of names; Table 7
-  trains 120 steps, 40 under ``--quick``; the unported tables raise naming
-  their ROADMAP item; every driver and the entry point default to the CUDA
-  card and raise where there is none.
+  trains 120 steps, 40 under ``--quick``; the profiles of ROADMAP item 18
+  (``tests/test_torch_profiles.py`` holds them against the reference) are
+  called with the reference's arguments and their rows written; every
+  driver, profile and the entry point default to the CUDA card and raise
+  where there is none.
 """
 
 import functools
@@ -558,14 +560,48 @@ def test_run_refuses_out(argv, capsys):
     assert not (RECORDS / "port").exists()
 
 
+PROFILES = {"resume_overhead": "resume_overhead", "comm_profile": "comm_profile",
+            "overlap": "overlap_profile"}
+
+
 @pytest.mark.parametrize("only,item", [("resume_overhead", "item 18"),
                                        ("comm_profile", "item 18"),
                                        ("overlap", "item 18")])
-def test_run_unported_tables_raise(only, item, tmp_path):
+def test_run_unported_tables_raise(only, item, tmp_path, monkeypatch):
+    """The profiles of ROADMAP queue A, ``item`` (ported since): ``--only``
+    calls each with the reference's arguments (``resume_overhead`` the
+    tables' LMSpec, checkpointing every 20 steps, 10 under ``--quick``;
+    the others reduced Llama-3-8B's tree and specs) on ``--device`` and
+    writes its rows; ``experiments/benchmarks/`` stays untouched."""
+    name = PROFILES[only]
+    calls = []
+    rows = [{"profile": name, "row": 1}, {"profile": name, "row": 2}]
+
+    def fake(*args, device, **kw):
+        calls.append((args, kw, device.type))
+        return rows
+
+    monkeypatch.setattr(tables, name, fake)
     before = _records_digest()
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue A, {item}\\)"):
-        run.main(["--only", only, "--device", "cpu", "--out", str(tmp_path)])
+    for quick in (False, True):
+        run.main(["--only", only, "--device", "cpu", "--out", str(tmp_path)]
+                 + (["--quick"] if quick else []))
+        assert json.loads((tmp_path / f"{name}.json").read_text()) == rows, item
+    assert sorted(p.name for p in tmp_path.iterdir()) == [f"{name}.json"]
     assert _records_digest() == before
+    assert [c[2] for c in calls] == ["cpu", "cpu"]
+    if name == "resume_overhead":
+        assert [(a[0].steps, a[0].workers, a[0].batch_per_worker, kw)
+                for a, kw, _ in calls] == [(150, 4, 4, {"ckpt_every": 20}),
+                                           (40, 4, 4, {"ckpt_every": 10})]
+        return
+    cfg = get_config("llama3-8b", reduced=True)
+    want = model.init(cfg, None, device="meta")
+    for (params, specs), kw, _ in calls:
+        assert not kw
+        assert specs == model.mspecs(cfg)
+        assert [(path, tuple(x.shape)) for path, x in tree.items(params)] == [
+            (path, tuple(x.shape)) for path, x in tree.items(want)]
 
 
 @pytest.mark.parametrize("quick,steps", [(True, 40), (False, 120)])
@@ -590,7 +626,11 @@ DEFAULT_DEVICE_CALLS = {
     "table7_lstm": lambda fn: fn(1),
     "adaptive_rank_profile": lambda fn: fn(bench.LMSpec(steps=1)),
     **{d: lambda fn: fn(_small_tree()[1][0], _small_tree()[1][1])
-       for d in ("table5_time_breakdown", "fig3_scaling")},
+       for d in ("table5_time_breakdown", "fig3_scaling", "comm_profile",
+                 "zoo_transport_profile", "sync_mode_profile", "overlap_profile")},
+    "resume_overhead": lambda fn: fn(bench.LMSpec(steps=1)),
+    "_wire_loss_run": lambda fn: fn("int4", 4, 1),
+    "_stale_loss_run": lambda fn: fn("one_step", 4, 1),
 }
 
 
