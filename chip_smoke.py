@@ -230,6 +230,21 @@ Phases, in order; any failure raises and the script exits non-zero:
               dropout), PROFILE_LOSS_STEPS steps card against CPU under
               phase 3's loss rule; (d) ``sync_mode_profile``'s gloo
               measurement (4 CPU processes), PROFILE_SYNC_STEPS steps a mode.
+20. tp      — tensor parallelism: (a), inside phase 5's group,
+              ``make_train_step(..., mesh=<(1, 1) mesh>)`` for DIST_STEPS
+              PowerSGD steps from phase 5's initial state against phase
+              5's data-only step, under phase 3's rule (bit-equal is the
+              prediction): the model-axis NCCL calls a step against
+              ``train.tp_calls_per_step``, B1b/B2b launches a step, step ms
+              and peak beside the data-only run's; (b) the local slab sets
+              that model ranks 0 and 1 of a model axis of 2 hand B1b/B2b
+              at full width (``ef_partition`` and ``MatrixPayloads.build``
+              on each rank's shard tree), as phase 2's rows: kernel, plain
+              version, ``torch.bmm`` and bound, and which rows take the
+              word path; (c) a padded rank's q-head → kv-head map (a
+              ``cat`` of expands) against ``index_select``, its backward
+              twice bit for bit.  A model axis > 1 needs two cards; none
+              runs here.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after; the summary line gives each kernel's launches on every
@@ -1326,7 +1341,7 @@ def bench_lm_zoo_parity(torch, bench, compressors, tree):
 
 
 def dist_run(torch, mods, cfg, mode, compressor, stats, batches, hyper=None,
-             adaptive=None):
+             adaptive=None, mesh=None):
     """One step per batch of one full-width path: ``mode`` "dist" through
     ``make_train_step`` on the process group, "sim" through
     ``make_sim_train_step`` on ``SimMesh(1)``, from the parameters and
@@ -1338,12 +1353,13 @@ def dist_run(torch, mods, cfg, mode, compressor, stats, batches, hyper=None,
     peak GiB (above what was allocated before it), the final parameters,
     and the run: per step the rank, loss, residual ratio, ms and the
     (kinds, sizes) of its collective records; the final EF state; the
-    controller's history."""
+    controller's history.  ``mesh``: the "dist" step on that (data, model)
+    grid."""
     train, tree, SimMesh, _ = mods
     hyper = hyper or train.TrainHyper()
     if mode == "dist":
         step, init = train.make_train_step(cfg, hyper, compressor=compressor,
-                                           stats=stats)
+                                           stats=stats, mesh=mesh)
     else:
         sim = SimMesh(1)
         step, init = train.make_sim_train_step(cfg, sim, hyper,
@@ -1390,7 +1406,8 @@ def dist_phase(torch, mods, kernel_mods, cfg, compressors, CollectiveStats,
     with the simulated step in the CPU's place.  Every launch count and the
     count of ``torch.distributed`` calls are set to 0 just before the
     distributed run and read just after.  Then phase 12 (c), phase 13 (c),
-    phase 14 (d), phase 15 (e), phase 17 (c) and phase 18 (c) in the same group
+    phase 14 (d), phase 15 (e), phase 17 (c), phase 18 (c) and phase 20 (a)
+    in the same group
     (``adaptive``: the port's ``powersgd`` and ``error_feedback`` modules).
     Returns {path: launches}."""
     import torch.distributed as tdist
@@ -1497,6 +1514,8 @@ def dist_phase(torch, mods, kernel_mods, cfg, compressors, CollectiveStats,
                                           n_buckets, smi, batches)
             out["sync"] = dist_sync(torch, mods, kernel_mods, cfg, CollectiveStats,
                                     pdist, n_buckets, smi, batches)
+            out["tp"] = dist_tp(torch, mods, kernel_mods, cfg, compressors,
+                                CollectiveStats, pdist, n_buckets, smi, batches)
         finally:
             tdist.destroy_process_group()
     return out
@@ -4603,6 +4622,139 @@ def profile_sync_measure(tables):
         raise AssertionError(f"gloo measurement: {measured}")
 
 
+# -- phase 20: tensor parallelism ---------------------------------------------
+# (a) runs inside phase 5's group (``dist_tp``): a (1, 1) mesh is the model
+# axis's real code path (its f/g autograd functions and K/V gathers issue
+# NCCL calls on a group of one).  (b) ``tp_slab_phase``.  NCCL refuses two
+# ranks on one device, so no model axis > 1 runs on this card.
+TP_MODEL = 2          # (b): the model axis whose local slabs are held
+
+
+def dist_tp(torch, mods, kernel_mods, cfg, compressors, CollectiveStats, pdist,
+            n_buckets, smi, batches):
+    """Phase 20 (a): DIST_STEPS PowerSGD steps of ``make_train_step`` on a
+    (1, 1) mesh against the data-only step (phase 5's path) from the same
+    initial state, held under phase 3's rule; the model-axis calls a step
+    against ``train.tp_calls_per_step``, B1b/B2b launches a step (one per
+    bucket), step ms and peak beside the data-only run's.  Every launch
+    count and call count is set to 0 just before the mesh run and read just
+    after.  Returns the mesh run's launches."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    train, tree = mods[0], mods[1]
+    hyper = train.TrainHyper()
+    make = lambda: compressors.make_compressor("powersgd", rank=RANK)
+    l_d, ms_d, peak_d, p_d, _ = dist_run(torch, mods, cfg, "dist", make(),
+                                         CollectiveStats(), batches)
+    p_d = tree.leaves(p_d)
+    torch.cuda.empty_cache()
+    mesh = mesh_lib.make_mesh((1, 1))
+    stats = CollectiveStats()
+    reset_all_launches(kernel_mods)
+    pdist.reset_calls()
+    pdist.reset_model_calls()
+    l_t, ms_t, peak_t, p_t, _ = dist_run(torch, mods, cfg, "dist", make(), stats,
+                                         batches, mesh=mesh)
+    launches = read_all_launches(kernel_mods)
+    model_calls = {k: v / DIST_STEPS for k, v in pdist.MODEL_CALLS.items()}
+    data_calls = {k: v / DIST_STEPS for k, v in pdist.CALLS.items()}
+    p_t = tree.leaves(p_t)
+    check_powersgd_parity("tp (1, 1) mesh", l_d, l_t, p_d, p_t,
+                          check="tp_vs_data_only")
+    bit_equal = l_d == l_t and all(torch.equal(a, b) for a, b in zip(p_d, p_t))
+    max_diff = max((a - b).abs().max().item() for a, b in zip(p_d, p_t))
+    del p_d, p_t
+    torch.cuda.empty_cache()
+    want_calls = train.tp_calls_per_step(cfg, hyper)
+    per_step = {k: v / DIST_STEPS for k, v in launches.items()}
+    print(json.dumps({
+        "check": "tp dist", "card": smi, "mesh": [1, 1], "steps": DIST_STEPS,
+        "bit_equal_to_data_only": bit_equal, "max_abs_param_diff": max_diff,
+        "losses_tp": l_t, "losses_data_only": l_d,
+        "model_calls_per_step": model_calls,
+        "model_calls_predicted": want_calls,
+        "data_calls_per_step": data_calls, "launches_per_step": per_step,
+        "step_ms_tp": ms_t, "step_ms_data_only": ms_d,
+        "median_step_ms_tp": statistics.median(ms_t),
+        "median_step_ms_data_only": statistics.median(ms_d),
+        "peak_gib_tp": peak_t, "peak_gib_data_only": peak_d}), flush=True)
+    if model_calls != want_calls:
+        raise AssertionError(f"tp: model-axis calls {model_calls} a step, "
+                             f"want {want_calls}")
+    want = {k: 0 for k in launches}
+    want.update({"lowrank_project": n_buckets * DIST_STEPS,
+                 "lowrank_backproject": n_buckets * DIST_STEPS})
+    if launches != want:
+        raise AssertionError(f"tp: launches {launches}, want {want}")
+    return launches
+
+
+def tp_heads_phase(torch, cfg, attention, smi):
+    """Phase 20 (c): the q-head → kv-head map of a model rank whose heads
+    are padded (Llama's 32 heads on a model axis of 3: rank 2 holds heads
+    22–32, kv heads 5, 5, 6 × 4, 7 × 5 after the clip), which
+    ``attention._heads`` builds as a ``cat`` of expands: equal to an
+    ``index_select`` forward, and two backward passes bit-equal on the
+    card."""
+    m_size, m = 3, 2
+    hl = attention.padded_heads(cfg, m_size) // m_size
+    idx = attention.kv_map(cfg, m_size)[m * hl:(m + 1) * hl]
+    gen = torch.Generator("cuda").manual_seed(20)
+    k = torch.randn((1, SEQ, cfg.num_kv_heads, cfg.resolved_head_dim),
+                    generator=gen, device="cuda", requires_grad=True)
+    w = torch.randn((1, SEQ, hl, cfg.resolved_head_dim), generator=gen,
+                    device="cuda")
+    grads = []
+    for _ in range(2):
+        out = attention._heads(k, idx)
+        (g,) = torch.autograd.grad((out * w).sum(), k)
+        grads.append(g)
+    same = torch.equal(out, k.index_select(2, torch.tensor(idx, device="cuda")))
+    print(json.dumps({"check": "tp heads", "card": smi, "kv_idx": idx,
+                      "forward_equal_to_index_select": same,
+                      "backward_bit_equal": torch.equal(*grads)}), flush=True)
+    if not (same and torch.equal(*grads)):
+        raise AssertionError("tp: the padded head map differs from index_select "
+                             "or its backward is not deterministic")
+
+
+def tp_slab_phase(torch, lowrank, ref, cfg, model, compressors, engine, train,
+                  peaks, smi):
+    """Phase 20 (b): the bucket slabs model ranks 0 and 1 of a model axis of
+    TP_MODEL hand B1b/B2b on one worker at full width, found on the meta
+    device from each rank's shard tree (``train_state_partition``'s specs,
+    ``MatrixPayloads.build``), held and timed as phase 2's rows; which rows
+    read their rows as words (a row not a multiple of 16 bytes,
+    ``src/repro_torch/csrc/lowrank.cu``).  Returns the rows."""
+    from repro_torch.launch import specs as specs_lib
+    from repro_torch.sharding import shard_tree
+
+    comp = compressors.make_compressor("powersgd", rank=RANK)
+    params = model.init(cfg, None, "meta", model_shards=TP_MODEL)
+    q = comp.init(params, model.mspecs(cfg))
+    parts = train.train_state_partition(
+        cfg, types.SimpleNamespace(axis_names=("data", "model")), comp)
+    specs = specs_lib.partition_specs(parts)
+    rows = []
+    for m in range(TP_MODEL):
+        where = {"model": (m, TP_MODEL)}
+        local = shard_tree(params, model.pspecs(cfg), where, copy=False)
+        payloads = engine.MatrixPayloads.build(
+            local, shard_tree(q, specs.comp, where, copy=False),
+            model.mspecs(cfg), partition=parts.comp)
+        slabs = [tuple(b.shape) for b in payloads.m_bufs]
+        got = slab_set_phase(torch, lowrank, ref, f"tp model rank {m} slabs",
+                             slabs, peaks, seed=20 + m)
+        print(json.dumps({
+            "check": "tp slabs", "card": smi, "model_rank": m,
+            "model_size": TP_MODEL, "slabs": slabs,
+            "bucket_model_sharded": payloads.bucket_model_sharded,
+            "word_path_rows": [r["kernel"] + " " + "x".join(map(str, r["shape"]))
+                               for r in got if r["vec"] == 1]}), flush=True)
+        rows += got
+    return rows
+
+
 def int4_chunk(torch, cfg, model, matrixize, tree, workers, scheme="top_k"):
     """(chunk, parts, (workers, codes)): the int4 chunk ``scheme``'s gather
     packs each step on ``cfg``, the payload parts it plans from (meta
@@ -4679,8 +4831,8 @@ def main() -> None:
     from repro_torch.bench import tables
     from repro_torch.configs.base import get_config
     from repro_torch.configs import llama3_8b
-    from repro_torch.core import (autotune, compressors, matrixize, orthogonalize,
-                                  powersgd)
+    from repro_torch.core import (autotune, compressors, engine, matrixize,
+                                  orthogonalize, powersgd)
     from repro_torch.core import dist as pdist
     from repro_torch.core.dist import CollectiveStats
     from repro_torch.core.simmesh import SimMesh
@@ -4690,7 +4842,7 @@ def main() -> None:
     from repro_torch.kernels import _build, lowrank, ops, quant, ref
     from repro_torch.kernels import ef_apply as ef_kernel
     from repro_torch.launch import train
-    from repro_torch.models import lstm, model, resnet
+    from repro_torch.models import attention, lstm, model, resnet
     from repro_torch.optim import schedules
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5022,6 +5174,14 @@ def main() -> None:
     profile_sync_measure(tables)
     print(f"profiles: {time.perf_counter() - t_prof:.1f} s")
 
+    # -- 20. tensor parallelism -----------------------------------------------
+    t_tp = time.perf_counter()
+    tp_rows = tp_slab_phase(torch, lowrank, ref, cfg, model, compressors, engine,
+                            train, peaks, smi)
+    tp_heads_phase(torch, cfg, attention, smi)
+    tp_launches = dist_launches["tp"]
+    print(f"tp: {time.perf_counter() - t_tp:.1f} s (and (a) in phase 5)")
+
     # launches of each kernel on every path this run drove
     paths = {"llama powersgd": psgd, "llama top_k_int4": topk,
              **{f"dist {k}": v for k, v in dist_launches.items()},
@@ -5052,7 +5212,12 @@ def main() -> None:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes" if t["bound_by"] == {"bytes"} else "operations",
             "library_ms": t["library_ms"],
-            "launches_by_path": by_path(f"lowrank_{kind}")})
+            "launches_by_path": by_path(f"lowrank_{kind}"),
+            "tp_launches": tp_launches[f"lowrank_{kind}"],
+            # phase 20 (b): one model rank's local slabs at M = 2, the mean
+            # over the ranks
+            "tp_slab_ms": sum(r["kernel_graph_ms"] for r in tp_rows
+                              if r["kernel"] == f"lowrank_{kind}") / TP_MODEL})
     for name, replaces in (("nibble_pack", "src/repro/kernels/quant.py:52"),
                            ("nibble_unpack", "src/repro/kernels/quant.py:77")):
         row = nibble_rows[name]
@@ -5068,7 +5233,7 @@ def main() -> None:
             "copy_floor_ms": row["copy_floor_ms"] * per_step,
             "cold_shape": row["cold"]["shape"], "cold_ms": row["cold"]["kernel_ms"],
             "cold_bound_ms": row["cold"]["bound_ms"],
-            "launches_by_path": by_path(name)})
+            "launches_by_path": by_path(name), "tp_launches": tp_launches[name]})
     summary.append({
         "name": "ef_apply", "route": "cuda",
         "source": "src/repro_torch/csrc/ef_apply.cu",
@@ -5079,7 +5244,8 @@ def main() -> None:
                      else "operations"),
         "library_ms": None,
         "launches_by_path": {
-            "its entry point (no training path calls it)": ef_launches}})
+            "its entry point (no training path calls it)": ef_launches},
+        "tp_launches": tp_launches["ef_apply"]})
     print(f"kernel times are per training step: lowrank sums over the "
           f"{len(buckets)} bucket slabs (rank {RANK}, {WORKERS} workers), "
           f"nibble kernels at the Top-K int4 chunk {chunk_shape}; ef_apply "

@@ -7,6 +7,8 @@ side's parameters and warm-start Q factors, converted to numpy
 :func:`to_torch`.  The layouts are the same in both packages (weights
 ``(d_in, d_out)``, blocks stacked on a leading period dim, Q factors
 ``batch_shape + (m, r)``), so the conversion is a copy, bit for bit.
+Under a model axis, :func:`to_torch_local` cuts the JAX side's global
+arrays to a rank's shards.
 """
 
 from __future__ import annotations
@@ -28,3 +30,14 @@ def to_numpy(t):
     """Nested dict of tensors (``None`` leaves allowed) → numpy arrays."""
     return tree.map(lambda x: None if x is None
                     else x.detach().cpu().numpy(), t)
+
+
+def to_torch_local(t, pspecs, mesh_or_coord, device="cpu"):
+    """A global tree of numpy arrays (the JAX package's parameters or
+    state) → one rank's local slices under ``pspecs``
+    (:func:`repro_torch.sharding.shard_tree`; ``mesh_or_coord`` a
+    :class:`~repro_torch.launch.mesh.Mesh` or ``{axis: (index, size)}``),
+    each a tensor of its own on ``device``."""
+    from repro_torch.sharding import shard_tree
+
+    return shard_tree(to_torch(t, device), pspecs, mesh_or_coord)

@@ -42,6 +42,8 @@ class ModelConfig:
     slots: Tuple[LayerSlot, ...] = (LayerSlot("attn", "dense"),)
     rope_theta: float = 500000.0
     dtype: str = "float32"
+    tp_local_kv: bool = False           # kv heads split over the model axis
+    #   when they divide evenly (no K/V all-gather); see models/attention.py
 
     @property
     def period(self) -> int:

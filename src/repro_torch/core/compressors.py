@@ -59,6 +59,7 @@ class Compressor:
     worker's own decode, or the aggregate where ``recon_is_agg``)."""
 
     name: str = "base"
+    stateful: bool = False   # carries per-matrix state (warm-start Q)
     allreduce: bool = True
     recon_is_agg: bool = False
     #: dtype census of one leaf's payload parts: ``"float"`` follows the
@@ -97,6 +98,12 @@ class Compressor:
         return (1 + n, 1, n)
 
     def init(self, params, specs, generator: Optional[torch.Generator] = None):
+        return None
+
+    def state_partition(self, param_pspecs, mspecs):
+        """Per-leaf :class:`~repro_torch.core.engine.StatePartition` tree of
+        this compressor's state (shaped like :meth:`init`'s), from the
+        parameters' specs; ``None`` for a stateless compressor."""
         return None
 
     def step(self, deltas, state, specs, ctx: MeshCtx = SINGLE,
@@ -203,6 +210,7 @@ class PowerSGDCompressor(Compressor):
     same; the per-leaf path ignores it)."""
 
     name = "powersgd"
+    stateful = True
 
     def __init__(self, rank=2, orthogonalizer="gram_schmidt", warm_start=True,
                  num_iters=1, error_mode="global", bucketing="auto",
@@ -243,13 +251,25 @@ class PowerSGDCompressor(Compressor):
         return powersgd.init_state(self.cfg, params, specs, generator,
                                    device=device)
 
+    def state_partition(self, param_pspecs, mspecs):
+        """The Q factors' partition (:func:`powersgd.factor_partition`): a
+        row-parallel weight's Q is model-LOCAL."""
+        return powersgd.state_partition(param_pspecs, mspecs)
+
+    def bind_state_partition(self, partition):
+        """Hand ``partition`` (a :meth:`state_partition` tree) to every later
+        :meth:`step`'s bucketed engine; returns it."""
+        self._state_partition = partition
+        return partition
+
     def step(self, deltas, state, specs, ctx=SINGLE, seed=None):
         draw = None
         if not self.cfg.warm_start:
             def draw(path, shape):
                 return self.draw("normal", path, seed, shape=shape)
-        return powersgd.compress_aggregate(self.cfg, deltas, state, specs,
-                                           ctx, draw)
+        return powersgd.compress_aggregate(
+            self.cfg, deltas, state, specs, ctx, draw,
+            partition=getattr(self, "_state_partition", None))
 
 
 def _matrices(g, spec, lead):

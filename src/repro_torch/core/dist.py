@@ -1,5 +1,5 @@
-"""Data-axis context threaded through the compression engine (port of
-``repro.core.dist``, data axis only).
+"""The mesh context threaded through the model and the compression engine
+(port of ``repro.core.dist``).
 
 Model code and compressors are written against :class:`MeshCtx`.  Outside
 any data-parallel group (:data:`SINGLE`) every collective is the identity.
@@ -22,7 +22,18 @@ and sums them in one fixed pairwise tree (:func:`_tree_sum`), the same
 expression on every rank and on both backends; fused transports defer the
 replica sync to one rank-0 broadcast (:meth:`MeshCtx.broadcast_flat`).
 
-Not ported yet: model-axis collectives (ROADMAP queue A, item 14).
+The model axis (tensor parallelism) runs only over ``torch.distributed``:
+``model_axis="model"`` and ``model_group``, the ranks that split one
+replica (:mod:`repro_torch.launch.mesh`).  :meth:`MeshCtx.psum_model` is
+Megatron's *f* (an ``all_reduce`` forward, the identity backward) and
+:func:`model_grad_sync` its *g* (the identity forward, an ``all_reduce``
+of the cotangent backward), the pair that makes every replicated gradient
+whole on every model rank; ``tp_grad_sync=False`` is the reference's
+legacy switch (``lax.psum``'s own transpose, no *g*).  Model-axis calls
+are counted in :data:`MODEL_CALLS`, apart from the data axis's
+:data:`CALLS`; :class:`CollectiveStats` records the data axis only.
+Without a model axis every model collective is the identity.  Still to
+come with ROADMAP queue A, item 14 (A14b): the mesh-aware checkpoints.
 """
 
 from __future__ import annotations
@@ -357,9 +368,92 @@ class DistBackend:
         return buf
 
 
+# model-axis torch.distributed calls, forward and backward, by kind
+MODEL_CALLS = {"all_reduce": 0, "all_gather": 0}
+
+
+def reset_model_calls() -> None:
+    for kind in MODEL_CALLS:
+        MODEL_CALLS[kind] = 0
+
+
+def _model_all_reduce(x: torch.Tensor, group, op=None) -> torch.Tensor:
+    """An ``all_reduce`` over the model group of a copy of ``x``."""
+    buf = x.clone(memory_format=torch.contiguous_format)
+    tdist.all_reduce(buf, op=tdist.ReduceOp.SUM if op is None else op,
+                     group=group)
+    MODEL_CALLS["all_reduce"] += 1
+    return buf
+
+
+class _ModelPsum(torch.autograd.Function):
+    """Megatron's *f*: the model group's sum forward; backward the identity
+    (``grad_reduce=False``) or, as ``lax.psum``'s own transpose, the sum
+    again (the reference's ``tp_grad_sync=False``)."""
+
+    @staticmethod
+    def forward(ctx, x, group, grad_reduce):
+        ctx.group, ctx.grad_reduce = group, grad_reduce
+        return _model_all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, ct):
+        if ctx.grad_reduce:
+            ct = _model_all_reduce(ct, ctx.group)
+        return ct, None, None
+
+
+class _ModelGradSync(torch.autograd.Function):
+    """Megatron's *g*: the identity forward, the model group's sum of the
+    cotangent backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _model_all_reduce(ct, ctx.group), None
+
+
+class _ModelAllGather(torch.autograd.Function):
+    """The model group's pieces concatenated along ``axis`` in rank order
+    (``lax.all_gather(..., tiled=True)``).  Backward is that gather's
+    transpose, a reduce-scatter, written as a sum ``all_reduce`` of the
+    cotangent and this rank's slice of it (gloo has no reduce-scatter; for
+    two ranks the sums are the same bits)."""
+
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        n = tdist.get_world_size(group)
+        xc = x.contiguous()
+        flat = xc.new_empty(n * xc.numel())   # gloo gathers into flat outputs
+        tdist.all_gather_into_tensor(flat, xc.reshape(-1), group=group)
+        MODEL_CALLS["all_gather"] += 1
+        ctx.group, ctx.axis, ctx.n = group, axis, n
+        ctx.index = tdist.get_group_rank(group, tdist.get_rank())
+        return torch.cat(flat.view((n,) + tuple(xc.shape)).unbind(0), dim=axis)
+
+    @staticmethod
+    def backward(ctx, ct):
+        total = _model_all_reduce(ct, ctx.group)
+        size = ct.shape[ctx.axis] // ctx.n
+        return total.narrow(ctx.axis, ctx.index * size, size), None, None
+
+
+def model_grad_sync(x: torch.Tensor, ctx: "MeshCtx") -> torch.Tensor:
+    """Megatron's *g* on ``x`` under ``ctx``: a no-op without a model axis
+    or with ``tp_grad_sync=False``."""
+    if ctx.model_axis is None or not ctx.tp_grad_sync:
+        return x
+    return _ModelGradSync.apply(x, ctx.model_group)
+
+
 @dataclasses.dataclass(frozen=True)
 class MeshCtx:
-    """Names of the data axes the computation is mapped over.
+    """Names of the data axes (and model axis) the computation is mapped
+    over.
 
     sync_mode: ``"allreduce"`` (default) trusts the backend's reduce to
              hand every rank the same value, which a library reduce whose
@@ -376,6 +470,16 @@ class MeshCtx:
     backend: how the data-axis collectives run (:class:`SimBackend` or
              :class:`DistBackend`); given exactly when ``data_axes`` is
              non-empty.
+    model_axis: ``"model"`` where the model's weights are split over
+             ``model_group`` (tensor parallelism), else ``None``.
+    tp_grad_sync: whether :func:`model_grad_sync` sums cotangents over the
+             model group where a replicated activation enters sharded
+             compute (*g*) and :meth:`psum_model` passes its cotangent
+             through (*f*).  ``True`` (default) gives whole gradients on
+             every model rank; ``False`` is the reference's legacy debug
+             switch: no *g*, and a sum backward for :meth:`psum_model`.
+    model_group: the ``torch.distributed`` group of the model axis; given
+             exactly when ``model_axis`` is.
     """
 
     data_axes: Tuple[str, ...] = ()
@@ -383,6 +487,9 @@ class MeshCtx:
     stats: Optional[CollectiveStats] = dataclasses.field(default=None, compare=False)
     backend: Optional[Union[SimBackend, DistBackend]] = dataclasses.field(
         default=None, compare=False)
+    model_axis: Optional[str] = None
+    tp_grad_sync: bool = True
+    model_group: Any = dataclasses.field(default=None, compare=False)
 
     def __post_init__(self):
         if self.sync_mode not in ("allreduce", "broadcast"):
@@ -390,6 +497,46 @@ class MeshCtx:
         if bool(self.data_axes) != (self.backend is not None):
             raise ValueError("a MeshCtx has a backend exactly when it has "
                              "data axes")
+        if (self.model_axis is None) != (self.model_group is None):
+            raise ValueError("a MeshCtx has a model group exactly when it "
+                             "has a model axis")
+
+    # -- the model axis (tensor parallelism) ------------------------------
+    def model_size(self) -> int:
+        """Ranks on the model axis (1 without one)."""
+        return 1 if self.model_axis is None else tdist.get_world_size(self.model_group)
+
+    def model_index(self) -> int:
+        """This rank's index on the model axis (0 without one)."""
+        if self.model_axis is None:
+            return 0
+        return tdist.get_group_rank(self.model_group, tdist.get_rank())
+
+    def psum_model(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over the model axis, Megatron's *f*: identity backward, or
+        under ``tp_grad_sync=False`` a sum backward as ``lax.psum``'s."""
+        if self.model_axis is None:
+            return x
+        return _ModelPsum.apply(x, self.model_group, not self.tp_grad_sync)
+
+    def pmean_model(self, x: torch.Tensor) -> torch.Tensor:
+        """Mean over the model axis of a tensor outside autograd (metrics)."""
+        if self.model_axis is None:
+            return x
+        return _model_all_reduce(x, self.model_group).div_(self.model_size())
+
+    def pmax_model(self, x: torch.Tensor) -> torch.Tensor:
+        """Max over the model axis of a tensor outside autograd."""
+        if self.model_axis is None:
+            return x
+        return _model_all_reduce(x, self.model_group, tdist.ReduceOp.MAX)
+
+    def all_gather_model(self, x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+        """The model ranks' ``x`` concatenated along ``axis`` in rank order;
+        backward the reduce-scatter that is the gather's transpose."""
+        if self.model_axis is None:
+            return x
+        return _ModelAllGather.apply(x, self.model_group, axis % x.dim())
 
     @property
     def lead(self) -> Tuple[int, ...]:

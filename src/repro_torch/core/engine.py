@@ -25,7 +25,13 @@ and ``decode_leaf(enc, payload, lead)`` rebuilds ``lead + shape`` from
 payloads that carry ``lead`` (the worker's own payload, or the gathered
 ``(W,)`` stack).  Under a ``torch.distributed`` context ``lead`` is ``()``.
 
-Not ported yet: ``StatePartition`` (ROADMAP queue A, item 14).
+Under a model axis each rank runs the engine on its local shards with
+data-axis collectives only.  :class:`StatePartition` records how each
+state leaf relates to the model axis (replicated, sharded, or model-LOCAL:
+per-rank content behind a replicated-shaped spec), and
+:func:`partition_mismatches` audits a partition tree against a state.
+The mesh-aware checkpoints that read these records wait for ROADMAP queue
+A, item 14 (A14b).
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ import torch
 from repro_torch import tree
 from repro_torch.core import dist, matrixize
 from repro_torch.core.dist import SINGLE, MeshCtx
+from repro_torch.sharding import mentions
 
 
 def keystr(path) -> str:
@@ -200,6 +207,106 @@ def scatter_tree(deltas, results):
                  for k in range(3))
 
 
+# ---------------------------------------------------------------------------
+# Per-leaf state partitioning: how a state leaf relates to the model axis
+# ---------------------------------------------------------------------------
+
+# Only the first two are visible in a leaf's dims spec; the third is the
+# class of leaves a checkpoint that reads model rank 0's copy corrupts.
+MODEL_REPLICATED = "replicated"  # the same bits on every model rank
+MODEL_SHARDED = "sharded"        # a dim carries the model axis
+MODEL_LOCAL = "local"            # per-model-rank content, no dim carrying the
+#                                  axis (the Q factor of a row-parallel
+#                                  weight: Q = Mᵀ P̂ from the rank's n-rows)
+
+
+@dataclasses.dataclass(frozen=True)
+class StatePartition:
+    """Partition record of one state leaf: ``spec``, the dims
+    :class:`~repro_torch.sharding.PartitionSpec` the leaf is sliced by, and
+    ``model``, one of :data:`MODEL_REPLICATED` / :data:`MODEL_SHARDED` /
+    :data:`MODEL_LOCAL`."""
+
+    spec: Any
+    model: str
+
+
+def partition_leaves(partition, leaves) -> list:
+    """Per-leaf model relation (or ``None``) aligned with
+    :func:`collect_leaves`'s leaves."""
+    rels = [None if p is None else p.model for p in tree.leaves(partition)]
+    if len(rels) != len(leaves):
+        raise ValueError(f"the partition has {len(rels)} leaves, the state "
+                         f"{len(leaves)}")
+    return rels
+
+
+def _items_with_path(t, path: str = ""):
+    """``(keystr path, leaf)`` pairs as ``jax.tree_util.
+    tree_flatten_with_path`` writes them: dict keys as ``['k']``, the
+    fields of a state dataclass (``EFState``) as ``.name``; ``None`` has no
+    leaves; a :class:`StatePartition` is a leaf."""
+    if t is None:
+        return
+    if isinstance(t, dict):
+        for k in sorted(t):
+            yield from _items_with_path(t[k], f"{path}[{k!r}]")
+    elif dataclasses.is_dataclass(t) and not isinstance(t, StatePartition):
+        for f in dataclasses.fields(t):
+            yield from _items_with_path(getattr(t, f.name), f"{path}.{f.name}")
+    else:
+        yield path, t
+
+
+def partition_mismatches(state, partition, model_axis: str = "model",
+                         mesh_axes=None) -> list:
+    """Structural audit of a :class:`StatePartition` tree against a state
+    (a compressor state or a whole ``EFState``): ``(path, problem,
+    detail)`` triples, empty when the tree is sound.  Per state leaf:
+
+    * ``"unclassified"`` — no :class:`StatePartition` at its path;
+    * ``"spec-rank"`` — the spec names more dims than the leaf has;
+    * ``"unknown-axis"`` — the spec names an axis not in ``mesh_axes``
+      (when given);
+    * ``"model-mismatch"`` — the spec carries ``model_axis`` but the leaf
+      is not :data:`MODEL_SHARDED`, or the other way round.
+    """
+    problems = []
+    state_paths = dict(_items_with_path(state))
+    part_paths = {p: x for p, x in _items_with_path(partition)
+                  if isinstance(x, StatePartition)}
+    for path, leaf in sorted(state_paths.items()):
+        part = part_paths.get(path)
+        shape = tuple(getattr(leaf, "shape", ()))
+        if part is None:
+            problems.append((path, "unclassified",
+                             f"state leaf {shape} has no StatePartition"))
+            continue
+        entries = tuple(part.spec) if part.spec is not None else ()
+        if len(entries) > len(shape):
+            problems.append((path, "spec-rank",
+                             f"spec {part.spec} names {len(entries)} dims "
+                             f"for a {len(shape)}-d leaf"))
+        if mesh_axes is not None:
+            for e in entries:
+                for ax in ((e,) if isinstance(e, str) else (e or ())):
+                    if ax not in mesh_axes:
+                        problems.append((path, "unknown-axis",
+                                         f"spec {part.spec} names axis "
+                                         f"{ax!r} not on the mesh "
+                                         f"{tuple(mesh_axes)}"))
+        carries = any(mentions(e, model_axis) for e in entries)
+        if part.model == MODEL_SHARDED and not carries:
+            problems.append((path, "model-mismatch",
+                             f"classified {MODEL_SHARDED} but spec "
+                             f"{part.spec} never carries {model_axis!r}"))
+        if part.model in (MODEL_REPLICATED, MODEL_LOCAL) and carries:
+            problems.append((path, "model-mismatch",
+                             f"classified {part.model} but spec {part.spec} "
+                             f"carries {model_axis!r}"))
+    return problems
+
+
 @dataclasses.dataclass
 class MatrixPayloads:
     """A tree's compressed leaves as zero-padded ``(B, n, m)`` bucket slabs.
@@ -220,15 +327,22 @@ class MatrixPayloads:
     bucket_ranks: List[int]
     bits: int                           # analytic payload bits per worker
     lead: Tuple[int, ...] = ()
+    bucket_model_sharded: Optional[List[bool]] = None  # per bucket: does it
+    #   hold a leaf whose state is model-sharded or model-local (None: no
+    #   partition was given)
 
     @classmethod
     def build(cls, deltas, state, specs, *, dtype=torch.float32,
               tolerance: float = 0.25, lead: Tuple[int, ...] = (),
-              resample: Optional[Callable] = None) -> "MatrixPayloads":
+              resample: Optional[Callable] = None,
+              partition=None) -> "MatrixPayloads":
         """``resample(path, shape)`` replaces every warm-start factor with
         the fresh standard-normal draw it returns for that leaf (cold
-        start)."""
+        start).  ``partition``, a :class:`StatePartition` tree aligned with
+        ``state``, fills ``bucket_model_sharded``."""
         leaves = collect_leaves(deltas, state, specs)
+        relations = (None if partition is None
+                     else partition_leaves(partition, leaves))
         nl = len(lead)
         mats, qs, plan_shapes, lshapes, unc_ids = [], [], [], [], []
         ranks = {}
@@ -265,13 +379,17 @@ class MatrixPayloads:
                     "leaves sharing a shape bucket must share a rank (bucket "
                     f"({b.n}, {b.m}) has ranks {sorted(rs)})")
             bucket_ranks.append(rs.pop())
+        bucket_ms = None
+        if relations is not None:
+            bucket_ms = [any(relations[e.index] not in (None, MODEL_REPLICATED)
+                             for e in b.entries) for b in plan.buckets]
         return cls(
             deltas=deltas, leaves=leaves, plan=plan,
             m_bufs=[matrixize.pack_matrices(b, mats, lead=nl)
                     for b in plan.buckets],
             q_bufs=[matrixize.pack_factors(b, qs) for b in plan.buckets],
             lshapes=lshapes, unc_ids=unc_ids, bucket_ranks=bucket_ranks,
-            bits=floats * 32, lead=tuple(lead))
+            bits=floats * 32, lead=tuple(lead), bucket_model_sharded=bucket_ms)
 
     @property
     def unc_values(self) -> List[torch.Tensor]:

@@ -41,6 +41,13 @@ on the host:
   package's key draws: the two packages' growths agree only when fed the
   same columns (:meth:`RankController.draw`).
 
+Under a model axis each rank compresses its local shards with data-axis
+collectives only.  :func:`factor_partition` / :func:`state_partition`
+classify each Q factor against the model axis: a column-parallel weight's
+Q is model-sharded on its m dim, a row-parallel weight's is model-LOCAL
+(``Q = Mᵀ P̂`` from the rank's own n-rows, behind a replicated-shaped
+spec).
+
 Residual tracking is per worker: each worker's ratio comes from its own M,
 as under the reference's ``vmap``, formed one worker's slab at a time.
 """
@@ -57,6 +64,48 @@ from repro_torch.core import engine, matrixize
 from repro_torch.core.dist import SINGLE, MeshCtx
 from repro_torch.core.orthogonalize import get_orthogonalizer
 from repro_torch.kernels import ops, ref
+from repro_torch.sharding import P, mentions as _mentions
+
+StatePartition = engine.StatePartition
+MODEL_REPLICATED = engine.MODEL_REPLICATED
+MODEL_SHARDED = engine.MODEL_SHARDED
+MODEL_LOCAL = engine.MODEL_LOCAL
+
+
+def factor_partition(param_spec, mspec, model_axis: str = "model"):
+    """:class:`~repro_torch.core.engine.StatePartition` of one Q factor
+    (``None`` for an uncompressed leaf).  Q has shape ``batch_shape + (m,
+    r)``: batch dims keep the parameter's entries, the m dim carries the
+    model axis iff one of the parameter's trailing (m) dims does.  Where
+    the n dim is model-sharded (row-parallel weights: the embedding, the
+    attention out projection, the MLP down projection), each rank's Q is
+    computed from its own n-rows, so the leaf is model-LOCAL though no dim
+    carries the axis."""
+    if not mspec.is_compressed():
+        return None
+    b = mspec.batch_dims
+    entries = tuple(param_spec) + (None,) * 16
+    n_sharded = _mentions(entries[b], model_axis)
+    m_sharded = any(_mentions(e, model_axis) for e in entries[b + 1:b + 16])
+    if n_sharded and m_sharded:
+        raise ValueError(
+            "a weight matrixized with both n and m dims model-sharded has no "
+            f"single-axis TP layout: {param_spec} with {mspec}")
+    spec = P(*(entries[:b] + (model_axis if m_sharded else None, None)))
+    if n_sharded:
+        model = MODEL_LOCAL
+    elif m_sharded or any(_mentions(e, model_axis) for e in entries[:b]):
+        model = MODEL_SHARDED
+    else:
+        model = MODEL_REPLICATED
+    return StatePartition(spec=spec, model=model)
+
+
+def state_partition(param_pspecs, mspecs, model_axis: str = "model"):
+    """Tree of :func:`factor_partition` records shaped like the state
+    :func:`init_state` builds (``None`` at uncompressed leaves)."""
+    return tree.map(lambda s, ms: factor_partition(s, ms, model_axis),
+                    param_pspecs, mspecs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -390,15 +439,19 @@ def init_state(cfg: PowerSGDConfig, shapes, specs,
 
 def compress_aggregate(cfg: PowerSGDConfig, deltas, state, specs,
                        ctx: MeshCtx = SINGLE,
-                       draw: Optional[Callable] = None) -> engine.CompressOut:
+                       draw: Optional[Callable] = None,
+                       partition=None) -> engine.CompressOut:
     """One PowerSGD step: bucketed (2 collectives per power iteration) or,
     under ``bucketing="off"``, per leaf.
 
     ``deltas`` carry ``ctx.lead`` worker dims; ``state`` (the Q factors) is
     worker-identical and held once.  ``draw(path, shape)`` → a fresh
     standard-normal factor for that leaf, needed only without warm start
-    (both paths draw the same factor for a leaf).  Returns ``agg`` held
-    once and, under ``error_mode="local"``, a per-worker ``recon``.
+    (both paths draw the same factor for a leaf).  ``partition``, a
+    :func:`state_partition` tree, marks the bucket slabs that hold
+    model-sharded or model-local factors (``MatrixPayloads.
+    bucket_model_sharded``).  Returns ``agg`` held once and, under
+    ``error_mode="local"``, a per-worker ``recon``.
     """
     if not cfg.warm_start and draw is None:
         raise ValueError("warm_start=False draws fresh factors: pass a draw "
@@ -410,7 +463,7 @@ def compress_aggregate(cfg: PowerSGDConfig, deltas, state, specs,
     payloads = engine.MatrixPayloads.build(
         deltas, state, specs, dtype=cfg.dtype,
         tolerance=cfg.bucket_pad_tolerance, lead=ctx.lead,
-        resample=None if cfg.warm_start else draw)
+        resample=None if cfg.warm_start else draw, partition=partition)
     transport_cls = (engine.PipelinedTransport if cfg.pipeline
                      else engine.Transport)
     transport = transport_cls(ctx=ctx, wire_dtype=cfg.wire_dtype,

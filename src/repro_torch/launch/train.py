@@ -1,10 +1,16 @@
-"""Data-parallel error-feedback training steps (port of ``TrainHyper``,
-``make_train_step`` and ``make_sim_train_step`` of ``repro.launch.train``).
+"""Error-feedback training steps (port of ``TrainHyper``,
+``make_train_step``, ``train_state_partition`` and ``make_sim_train_step``
+of ``repro.launch.train``).
 
 * :func:`make_train_step` — one worker per process over a
   ``torch.distributed`` process group (:class:`~repro_torch.core.dist.
   DistBackend`): each process computes the gradient of its own batch shard
-  and the compressor's collectives are real ones.
+  and the compressor's collectives are real ones.  Given a
+  :class:`~repro_torch.launch.mesh.Mesh`, the processes form a (data,
+  model) grid: the model's weights are split over the model axis
+  (Megatron-style tensor parallelism, :mod:`repro_torch.models`), each
+  rank compresses its local shards, and the compressor's collectives span
+  the data axis only.
 * :func:`make_sim_train_step` — W workers in one process on one device
   (:class:`~repro_torch.core.simmesh.SimMesh`): each computes its gradient
   on its own batch shard, and the compressor aggregates over the stacked
@@ -44,8 +50,10 @@ takes the same switch.
 repro_torch.launch.train``: the JAX package's flags, printed lines,
 checkpoints (:mod:`repro_torch.checkpoint`, envelopes either package
 reads) and resume guards, one process per worker, ``--sync-mode
-broadcast`` included.  The model axis (tensor parallelism) waits for
-ROADMAP queue A, item 14.
+broadcast`` included.  Four or more processes form a (world/2, 2) grid,
+as the JAX CLI forms its mesh; checkpoints, resume and rank schedules on a
+model axis of 2 wait for ROADMAP queue A, item 14 (A14b), and raise
+naming it.
 """
 
 from __future__ import annotations
@@ -65,14 +73,17 @@ import torch.distributed as tdist
 from repro_torch import tree
 from repro_torch.checkpoint import train_state as ts
 from repro_torch.configs.base import ModelConfig, get_config
-from repro_torch.core import error_feedback, matrixize
+from repro_torch.core import dist, error_feedback, matrixize
 from repro_torch.core.compressors import Compressor, PowerSGDCompressor
-from repro_torch.core.dist import DistBackend, MeshCtx
+from repro_torch.core.dist import SINGLE, DistBackend, MeshCtx
 from repro_torch.core.error_feedback import EFState
 from repro_torch.core.simmesh import SimMesh
 from repro_torch.data.synthetic import MarkovLM
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import specs as specs_lib
 from repro_torch.models import model
 from repro_torch.optim import schedules
+from repro_torch.sharding import shard_tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,6 +113,9 @@ class TrainHyper:
     #   the library's all-reduce order depends on the rank
     track_drift: bool = False       # drift_{params,momentum,error,q} in the
     #   step's metrics: the largest difference of each tree from rank 0's
+    tp_grad_sync: bool = True       # the model axis's g/f pair (models/
+    #   common.grad_synced); False is the reference's legacy debug switch,
+    #   whose replicated gradients are per-model-rank partial sums
 
 
 def _schedule(hyper: TrainHyper, step: int) -> float:
@@ -162,12 +176,14 @@ def grad_with_aux(loss_fn: Callable) -> Callable:
     return grad
 
 
-def local_grads(cfg: ModelConfig, params, shard, *, q_chunk: int, device):
+def local_grads(cfg: ModelConfig, params, shard, *, q_chunk: int, device,
+                ctx: MeshCtx = SINGLE):
     """The gradient of one worker's loss on its batch ``shard`` (``(b, S)``
     leaves): a list of gradients in ``tree.leaves(params)`` order, and the
-    worker's ``lm_loss``."""
+    worker's ``lm_loss``.  Under a model axis (``ctx``) ``params`` are the
+    rank's local shards and so are the gradients."""
     shard = {k: v.to(device) for k, v in shard.items()}
-    grads, metrics = grad_with_aux(model.loss_fn)(params, shard, cfg,
+    grads, metrics = grad_with_aux(model.loss_fn)(params, shard, cfg, ctx,
                                                   q_chunk=q_chunk)
     return tree.leaves(grads), metrics["lm_loss"]
 
@@ -194,20 +210,35 @@ def _default_compressor(hyper: TrainHyper) -> Compressor:
 
 
 def _make_step(cfg: ModelConfig, hyper: TrainHyper,
-               compressor: Optional[Compressor], lead, grads_fn, dev):
+               compressor: Optional[Compressor], lead, grads_fn, dev,
+               mesh=None):
     """``(step_fn, init_state)`` around ``grads_fn(params, batch)`` →
     (gradient tree with ``lead`` worker dims, the workers' ``lm_loss``);
     ``step_fn(params, ef_state, batch, ctx, seed)`` is the step body shared
-    by both public builders, run under the step's context ``ctx``."""
+    by both public builders, run under the step's context ``ctx``.  With a
+    ``mesh``, the state is this rank's shards (``init_state`` slices the
+    global draw by :func:`train_state_partition`'s specs), and the metrics
+    are averaged (the drifts maxed) over the model axis after the data
+    axis."""
     if compressor is None:
         compressor = _default_compressor(hyper)
     mspec_tree = model.mspecs(cfg)
+    m_size = 1 if mesh is None else mesh.shape["model"]
+    parts = None
+    if mesh is not None:
+        if m_size > 1 and getattr(compressor, "rank_schedule", None) is not None:
+            raise NotImplementedError(
+                "rank schedules on a model axis > 1 (new columns drawn at "
+                "global shape and sliced) wait for ROADMAP queue A, item 14")
+        parts = train_state_partition(cfg, mesh, compressor, hyper.staleness)
+        if hasattr(compressor, "bind_state_partition"):
+            compressor.bind_state_partition(parts.comp)
 
     def step_fn(params, ef_state: EFState, batch, ctx: MeshCtx, seed=None):
         grads, losses = grads_fn(params, batch)
         # metrics aggregate through the backend directly: they are not
         # gradient traffic, so ``stats`` does not record them
-        loss = ctx.backend.pmean(losses)
+        loss = ctx.pmean_model(ctx.backend.pmean(losses))
         lr = _schedule(hyper, ef_state.step)
         params, ef_state, aux = error_feedback.apply_updates(
             compressor, params, grads, ef_state, mspec_tree, lr=lr,
@@ -217,26 +248,42 @@ def _make_step(cfg: ModelConfig, hyper: TrainHyper,
         metrics = {"lm_loss": loss, "lr": lr,
                    "bits_per_worker": aux["bits_per_worker"]}
         if "residual_ratio" in aux:   # what a host-side RankController reads
-            metrics["residual_ratio"] = ctx.backend.pmean(aux["residual_ratio"])
+            metrics["residual_ratio"] = ctx.pmean_model(
+                ctx.backend.pmean(aux["residual_ratio"]))
         if hyper.track_drift:
             for name, t in (("params", params), ("momentum", ef_state.momentum),
                             ("error", ef_state.error), ("q", ef_state.comp)):
-                metrics[f"drift_{name}"] = replica_drift(
-                    ctx, t, per_worker=name == "error")
+                metrics[f"drift_{name}"] = ctx.pmax_model(replica_drift(
+                    ctx, t, per_worker=name == "error"))
         return params, ef_state, metrics
 
-    def init_state(generator: Optional[torch.Generator] = None):
-        params = model.init(cfg, generator, device=dev)
-        return params, error_feedback.init_state(
-            compressor, params, mspec_tree, lead=lead, generator=generator,
-            staleness=hyper.staleness)
+    def init_state(generator: Optional[torch.Generator] = None, *,
+                   global_state=None):
+        if mesh is None:
+            params = model.init(cfg, generator, device=dev)
+            return params, error_feedback.init_state(
+                compressor, params, mspec_tree, lead=lead, generator=generator,
+                staleness=hyper.staleness)
+        if global_state is None:
+            params = model.init(cfg, generator, device=dev, model_shards=m_size)
+            comp = compressor.init(params, mspec_tree, generator)
+        else:
+            params, comp = global_state
+        specs = specs_lib.partition_specs(parts)
+        params = shard_tree(params, model.pspecs(cfg), mesh)
+        zeros = lambda t: tree.map(torch.zeros_like, t)
+        return params, EFState(
+            error=zeros(params), momentum=zeros(params),
+            comp=None if comp is None else shard_tree(comp, specs.comp, mesh),
+            step=0,
+            inflight=zeros(params) if hyper.staleness == "one_step" else None)
 
     return step_fn, init_state
 
 
 def make_train_step(cfg: ModelConfig, hyper: TrainHyper,
                     compressor: Optional[Compressor] = None, group=None,
-                    stats=None, device=None):
+                    stats=None, device=None, mesh=None):
     """One data-parallel worker's error-feedback train step, one process per
     worker over the ``torch.distributed`` process group ``group`` (``None``:
     the default group).  Returns ``(step_fn, init_state)``.
@@ -263,25 +310,86 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper,
     momentum (and in-flight aggregate, under ``staleness="one_step"``).
     Every worker must pass a generator with the same seed, so
     that all start from the same parameters and factors.
+
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh`, exclusive with
+    ``group``): tensor parallelism over its model axis.  The data-axis
+    collectives span ``mesh.data_group`` and the model's *f*/*g* pair and
+    gathers ``mesh.model_group`` (:data:`repro_torch.core.dist.MODEL_CALLS`
+    counts them); ``hyper.tp_grad_sync`` is the reference's switch.
+    ``init_state(generator)`` draws the global parameters (heads and
+    vocabulary padded to the model size) and the compressor's global state,
+    then keeps this rank's slices under :func:`train_state_partition`'s
+    specs: a model-sharded Q factor its rows, a model-LOCAL one the whole
+    draw; ``init_state(global_state=(params, comp))`` slices a given global
+    state instead (its whole leaves are used in place).  Every tree the step
+    takes and returns is the rank's local one; ``metrics["lm_loss"]`` is
+    averaged over the data ranks, then over the model ranks.  A rank
+    schedule on a model axis > 1 raises (ROADMAP queue A, item 14).
     """
+    if mesh is not None and group is not None:
+        raise ValueError("make_train_step takes a group or a mesh, not both")
     dev = resolve_device(device)
-    backend = DistBackend(group)
+    if mesh is None:
+        backend = DistBackend(group)
+        ctx = MeshCtx(data_axes=("data",), sync_mode=hyper.sync_mode,
+                      stats=stats, backend=backend)
+    else:
+        backend = DistBackend(mesh.data_group)
+        dist.check_backend_device(tdist.get_backend(mesh.model_group), dev)
+        ctx = MeshCtx(data_axes=mesh_lib.data_axes(mesh),
+                      sync_mode=hyper.sync_mode, stats=stats, backend=backend,
+                      model_axis=mesh_lib.model_axis(mesh),
+                      tp_grad_sync=hyper.tp_grad_sync,
+                      model_group=mesh.model_group)
     backend.check_device(dev)
-    ctx = MeshCtx(data_axes=("data",), sync_mode=hyper.sync_mode, stats=stats,
-                  backend=backend)
 
     def grads_fn(params, batch):
         grads, loss = local_grads(cfg, params, batch, q_chunk=hyper.q_chunk,
-                                  device=dev)
+                                  device=dev, ctx=ctx)
         return tree.unflatten(params, grads), loss
 
     body, init_state = _make_step(cfg, hyper, compressor, ctx.lead, grads_fn,
-                                  dev)
+                                  dev, mesh)
 
     def step_fn(params, ef_state: EFState, batch, seed=None):
         return body(params, ef_state, batch, ctx, seed)
 
     return step_fn, init_state
+
+
+def train_state_partition(cfg: ModelConfig, mesh,
+                          compressor: Optional[Compressor] = None,
+                          staleness: str = "none") -> EFState:
+    """The per-leaf :class:`~repro_torch.core.engine.StatePartition` tree of
+    the error-feedback state on ``mesh`` (what :func:`make_train_step`
+    slices its state by and binds into the engine), built without a step.
+    Pass the run's ``staleness`` so a one-step state's in-flight leaves are
+    classified too."""
+    if compressor is None:
+        compressor = PowerSGDCompressor()
+    return specs_lib.ef_partition(
+        model.pspecs(cfg), model.mspecs(cfg), mesh_lib.data_axes(mesh),
+        compressor=compressor, stateful=compressor.stateful,
+        staleness=staleness)
+
+
+def tp_calls_per_step(cfg: ModelConfig, hyper: TrainHyper) -> dict:
+    """The model-axis ``torch.distributed`` calls of one
+    :func:`make_train_step` step on a mesh (:data:`repro_torch.core.dist.
+    MODEL_CALLS`), forward and backward, with ``tp_grad_sync`` on.  Per
+    layer: the attention's and the MLP's *g* (an ``all_reduce`` backward
+    each), the K and V gathers (an ``all_gather`` forward and an
+    ``all_reduce`` backward each) and the *f* after ``wo`` and after
+    ``w_down`` (an ``all_reduce`` forward each); once: the embedding's *f*,
+    the head's *g*, the cross-entropy's max and its two sums, and the loss
+    metric's mean over the model axis; the residual ratio's mean under
+    ``track_residual`` and the four drift probes' max under
+    ``track_drift``."""
+    if not hyper.tp_grad_sync:
+        raise ValueError("the count is for tp_grad_sync=True")
+    all_reduce = (6 * cfg.num_layers + 5 + 1 + int(hyper.track_residual)
+                  + 4 * int(hyper.track_drift))
+    return {"all_reduce": all_reduce, "all_gather": 2 * cfg.num_layers}
 
 
 def make_sim_train_step(cfg: ModelConfig, sim, hyper: TrainHyper,
@@ -410,7 +518,9 @@ def main(argv=None) -> None:
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; each torchrun process takes "
-                         "cuda:LOCAL_RANK) or 'cpu'")
+                         "cuda:LOCAL_RANK, so four or more processes, a "
+                         "(world/2, 2) data x model grid, need as many "
+                         "cards) or 'cpu'")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=0,
                     help="save a full TrainState checkpoint every N steps "
@@ -442,13 +552,40 @@ def main(argv=None) -> None:
                 tdist.destroy_process_group()
 
 
+def check_model_axis_options(args, model_size: int) -> None:
+    """Raise, before any step, for the options that wait on a model axis
+    > 1: checkpoints and resume (the mesh-aware envelope) and rank
+    schedules (ROADMAP queue A, item 14)."""
+    if model_size == 1:
+        return
+    for flag, value in (("--ckpt-dir", args.ckpt_dir),
+                        ("--resume", args.resume),
+                        ("--rank-schedule", args.rank_schedule)):
+        if value:
+            raise NotImplementedError(
+                f"{flag} on a model axis of {model_size} (mesh-aware "
+                f"checkpoints and rank transitions of a sharded state) waits "
+                f"for ROADMAP queue A, item 14")
+
+
 def _train(args, cfg, dev) -> None:
-    """The body of :func:`main`, inside the process group."""
+    """The body of :func:`main`, inside the process group: the JAX CLI's
+    grid (:func:`repro_torch.launch.mesh.cli_shape`), the batch split over
+    the data ranks (every model rank of a data row takes the same shard)."""
     world, rank = tdist.get_world_size(), tdist.get_rank()
-    if args.batch % world:
-        raise SystemExit(f"--batch {args.batch} does not split over "
-                         f"{world} processes")
+    try:
+        shape = mesh_lib.cli_shape(world)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    check_model_axis_options(args, shape[1])
+    if args.batch % shape[0]:
+        over = f"{world} processes" if shape[1] == 1 else f"{shape[0]} data ranks"
+        raise SystemExit(f"--batch {args.batch} does not split over {over}")
+    mesh = mesh_lib.make_mesh(shape)
+    data_rank, data_size = mesh.coords["data"]
     say = print if rank == 0 else (lambda *a, **k: None)
+    if shape[1] > 1:
+        say(f"mesh (data, model) = {shape}")
     hyper = TrainHyper(lr=args.lr, rank=args.rank, q_chunk=64,
                        warmup_steps=20, rank_schedule=args.rank_schedule,
                        wire_dtype=args.wire_dtype, sync_mode=args.sync_mode,
@@ -457,7 +594,7 @@ def _train(args, cfg, dev) -> None:
         rank=args.rank, rank_schedule=args.rank_schedule,
         wire_dtype=args.wire_dtype, pipeline=args.staleness == "one_step")
     step_fn, init_state = make_train_step(cfg, hyper, compressor=compressor,
-                                          device=dev)
+                                          device=dev, mesh=mesh)
     controller = (compressor.controller()
                   if compressor.rank_schedule is not None else None)
     seed = 0   # the base seed (the JAX package's jax.random.key(0))
@@ -516,7 +653,8 @@ def _train(args, cfg, dev) -> None:
                         "staleness": args.staleness,
                         "wire_dtype": args.wire_dtype})
 
-    lo, hi = rank * args.batch // world, (rank + 1) * args.batch // world
+    lo = data_rank * args.batch // data_size
+    hi = (data_rank + 1) * args.batch // data_size
     t0 = time.time()
     metrics = {}
     for i in range(start, args.steps):
