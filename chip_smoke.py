@@ -187,7 +187,10 @@ Phases, in order; any failure raises and the script exits non-zero:
               (b) ``python -m repro_torch.launch.train`` on reduced
               Llama-3-8B (NCCL, world size 1) in processes of its own,
               CLI_STEPS steps straight and CLI_SAVE_AT + ``--resume``
-              under CLI_SCHEDULE: equal ``hex=``; (c) that envelope
+              under CLI_SCHEDULE, saved through ``canonicalize_mesh`` and
+              resumed through ``stack_model_template`` and
+              ``replicate_mesh`` at model degree 1: equal ``hex=``, the
+              envelope's grid (1, 1); (c) that envelope
               resumed on the CPU to CLI_STEPS, phase 3's rule against the
               card.
 17. staleness — ``TrainHyper(staleness="one_step")``, the delayed-update
@@ -245,6 +248,16 @@ Phases, in order; any failure raises and the script exits non-zero:
               ``cat`` of expands) against ``index_select``, its backward
               twice bit for bit.  A model axis > 1 needs two cards; none
               runs here.
+21. tp ckpt — mesh-aware checkpoints and rank schedules on a model axis
+              of TP_MODEL, both model ranks' pieces in one process: (a)
+              phase 20's full width, each rank's Q from one B1b →
+              gram_schmidt → B2b pass on its local slabs, the canonical
+              tree assembled and cut back, a growth RANK → TP_GROW_RANK
+              at global shape against each rank's, all bit for bit; (b)
+              reduced Llama-3-8B on a (2, TP_MODEL) grid written and
+              restored on the card, every coordinate bit for bit, B1b/B2b
+              on the restored slabs equal to the pre-save products and
+              within phase 2's tolerance of their plain versions.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after; the summary line gives each kernel's launches on every
@@ -3772,6 +3785,9 @@ def ckpt_cli_phase(train, ckpt, smi):
     p_cpu = [ckpt.decode_leaf(d) for d in env_cpu["leaves"]
              if d["path"].startswith("['params']")]
     l_card, l_cpu = float.fromhex(h_resumed), float.fromhex(h_cpu)
+    grid = (env_card["meta"]["model_axis_size"], env_card["meta"]["mesh_shape"])
+    if grid != (1, {"data": 1, "model": 1}):
+        raise AssertionError(f"phase 16 (b): the envelope's grid {grid}")
     hist_card = env_card["meta"]["controller"]["history"]
     hist_cpu = env_cpu["meta"]["controller"]["history"]
     print(json.dumps({"check": "checkpoint cli", "card": smi,
@@ -4755,6 +4771,228 @@ def tp_slab_phase(torch, lowrank, ref, cfg, model, compressors, engine, train,
     return rows
 
 
+# Mesh-aware checkpoints and rank schedules on a model axis (phase 21), in one
+# process on one card: NCCL takes one rank per card, so the model ranks of a
+# (D, TP_MODEL) grid are held here as pieces side by side, through the pure
+# halves of the grid's canonical layout (``assemble_mesh``/``split_mesh``,
+# which ``canonicalize_mesh``/``replicate_mesh`` run over the processes).
+# (a) Phase 20's full width at TP_MODEL = 2: both model ranks' local states
+# cut by ``shard_tree``, each rank's Q from one B1b → gram_schmidt → B2b pass
+# on its own local slabs (``compress_aggregate``, launches counted), so the
+# model-LOCAL factors differ between the ranks; the canonical tree assembled
+# and cut back, bit for bit; the factors grown RANK → TP_GROW_RANK by each
+# rank's controller (partition and model coordinate) against the growth of
+# the canonical factors, cut, bit for bit.  (b) Reduced Llama-3-8B on a
+# (2, TP_MODEL) grid: the canonical tree written and restored on the card
+# (``global_template`` → ``stack_model_template`` → ``restore_train_state``
+# → ``split_mesh``), every coordinate bit for bit, and B1b/B2b on each
+# coordinate's restored slabs: the products equal the pre-save ones and
+# each kernel agrees with its plain version under phase 2's tolerance.
+
+TP_GROW_RANK = 4
+TP_CKPT_DATA = 2       # (b): the grid's data size
+
+
+def tp_pieces(torch, cfg, model, compressors, powersgd, train, tree, shard_tree,
+              d_size, gen):
+    """Every (d, m) coordinate's local ``(params, ef)`` of a (d_size,
+    TP_MODEL) grid on the card, and the partition: parameters drawn at
+    ``model_shards=TP_MODEL`` and cut by ``shard_tree``; each model rank's
+    Q factors from one PowerSGD pass (B1b → gram_schmidt → B2b) on its own
+    local slabs from the drawn factors; momentum −½ the parameters and each
+    coordinate's error buffer (d + 2) times them (every coordinate's own)."""
+    from repro_torch.launch import specs as specs_lib
+
+    comp = compressors.PowerSGDCompressor(rank=RANK)
+    grid = types.SimpleNamespace(axis_names=("data", "model"),
+                                 shape={"data": d_size, "model": TP_MODEL})
+    parts = train.train_state_partition(cfg, grid, comp)
+    specs = specs_lib.partition_specs(parts)
+    params = model.init(cfg, gen, device="cuda", model_shards=TP_MODEL)
+    q = comp.init(params, model.mspecs(cfg), gen)
+    pieces = {}
+    for m in range(TP_MODEL):
+        where = {"model": (m, TP_MODEL)}
+        local = shard_tree(params, model.pspecs(cfg), where)
+        out = powersgd.compress_aggregate(
+            comp.cfg, local, shard_tree(q, specs.comp, where), model.mspecs(cfg),
+            partition=parts.comp)
+        q_m = out.state
+        del out
+        for d in range(d_size):
+            pieces[(d, m)] = (local, train.EFState(
+                error=tree.map(lambda x: x * float(d + 2), local),
+                momentum=tree.map(lambda x: x * -0.5, local), comp=q_m, step=1))
+    del params, q
+    return pieces, parts, grid
+
+
+def trees_bit_equal(torch, tree, a, b) -> bool:
+    """Two ``(params, ef)`` pairs, leaf for leaf, bit for bit."""
+    (pa, ea), (pb, eb) = a, b
+    pairs = [(pa, pb)] + [(getattr(ea, n), getattr(eb, n))
+                          for n in ("error", "momentum", "comp")]
+    for x, y in pairs:
+        for u, v in zip(tree.leaves(x), tree.leaves(y)):
+            if (u is None) != (v is None) or (u is not None and not (
+                    u.shape == v.shape and torch.equal(u, v))):
+                return False
+    return True
+
+
+def tp_ckpt_phase(torch, kernel_mods, cfg, small, mods, smi):
+    """Phase 21 (see above).  Returns the launches of (a)'s PowerSGD
+    passes (the main path of the phase, counts set to 0 just before and read
+    just after) and the phase's row."""
+    from repro_torch.checkpoint import train_state as ts
+    from repro_torch.core import engine
+    from repro_torch.core.orthogonalize import gram_schmidt
+    from repro_torch.sharding import shard, shard_tree
+
+    from repro_torch.launch import specs as specs_lib
+
+    model, compressors, powersgd, train, tree, lowrank, ref = mods
+    t0 = time.perf_counter()
+    # the buckets of each model rank's local slabs (phase 20 (b)'s), found on
+    # the meta device: one B1b and one B2b launch each in (a)
+    comp = compressors.PowerSGDCompressor(rank=RANK)
+    meta_p = model.init(cfg, None, "meta", model_shards=TP_MODEL)
+    meta_q = comp.init(meta_p, model.mspecs(cfg))
+    meta_parts = train.train_state_partition(
+        cfg, types.SimpleNamespace(axis_names=("data", "model")), comp)
+    n_buckets = sum(len(engine.MatrixPayloads.build(
+        shard_tree(meta_p, model.pspecs(cfg), w, copy=False),
+        shard_tree(meta_q, specs_lib.partition_specs(meta_parts).comp, w,
+                   copy=False), model.mspecs(cfg), partition=meta_parts.comp).m_bufs)
+        for w in ({"model": (m, TP_MODEL)} for m in range(TP_MODEL)))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator("cuda").manual_seed(21)
+    # (a) full width, one data row
+    reset_all_launches(kernel_mods)
+    pieces, parts, grid = tp_pieces(torch, cfg, model, compressors, powersgd,
+                                    train, tree, shard_tree, 1, gen)
+    torch.cuda.synchronize()
+    launches = read_all_launches(kernel_mods)
+    local_paths = [p for p, x in tree.items(parts.comp)
+                   if x is not None and x.model == engine.MODEL_LOCAL]
+    q0, q1 = (pieces[(0, m)][1].comp for m in range(TP_MODEL))
+    local_differ = all(not torch.equal(dict(tree.items(q0))[p], dict(tree.items(q1))[p])
+                       for p in local_paths)
+    t_asm = time.perf_counter()
+    p_c, ef_c = ts.assemble_mesh(pieces, parts, grid.shape)
+    torch.cuda.synchronize()
+    assemble_s = time.perf_counter() - t_asm
+    canonical_gb = sum(x.numel() * x.element_size() for t in (p_c, ef_c.error,
+                       ef_c.momentum, ef_c.comp) for x in tree.leaves(t)
+                       if x is not None) / 1e9
+    round_trip = True
+    t_split = time.perf_counter()
+    for c, piece in pieces.items():
+        back = ts.split_mesh(p_c, ef_c, parts, c, grid.shape)
+        round_trip = round_trip and trees_bit_equal(torch, tree, back, piece)
+        del back
+    torch.cuda.synchronize()
+    split_s = time.perf_counter() - t_split
+    # growth: each rank's controller against the canonical factors' growth
+    schedule = f"{RANK}@0,{TP_GROW_RANK}@1"
+    draw = lambda path, shape: powersgd.RankController(schedule).draw(0, path, shape)
+    grown_ok = True
+    for m in range(TP_MODEL):
+        ctl = powersgd.RankController(schedule)
+        grown, changed = ctl.update(pieces[(0, m)][1].comp, 1, partition=parts.comp,
+                                    model_coord=(m, TP_MODEL))
+        grown_ok = grown_ok and changed
+        for (path, g), q, part in zip(tree.items(grown), tree.leaves(ef_c.comp),
+                                      tree.leaves(parts.comp)):
+            if g is None:
+                continue
+            if part.model == engine.MODEL_LOCAL:
+                want = powersgd.transition_factor(q[m], TP_GROW_RANK, draw, path)
+            else:
+                want = shard(powersgd.transition_factor(q, TP_GROW_RANK, draw, path),
+                             part.spec, {"model": (m, TP_MODEL)})
+            grown_ok = grown_ok and g.shape == want.shape and torch.equal(g, want)
+        del grown
+    full_s = time.perf_counter() - t0
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    del pieces, p_c, ef_c, q0, q1
+    torch.cuda.empty_cache()
+
+    # (b) reduced width on a (TP_CKPT_DATA, TP_MODEL) grid: save and restore
+    t_small = time.perf_counter()
+    pieces, parts, grid = tp_pieces(torch, small, model, compressors, powersgd,
+                                    train, tree, shard_tree, TP_CKPT_DATA, gen)
+    p_c, ef_c = ts.assemble_mesh(pieces, parts, grid.shape)
+    directory = os.path.join(ROOT, "build", "tp_ckpt_smoke")
+    shutil.rmtree(directory, ignore_errors=True)
+    ts.save_train_state(directory, ts.TrainState(params=p_c, ef=ef_c, data_step=1),
+                        model_axis_size=TP_MODEL, mesh_shape=dict(grid.shape))
+    p_t, ef_t = train.global_template(small, grid, comp)
+    state, meta = ts.restore_train_state(
+        directory, ts.TrainState(params=p_t, ef=ts.stack_model_template(
+            ef_t, parts, TP_MODEL)), model_axis_size=TP_MODEL)
+    restored_equal, products_equal, worst = True, True, 0.0
+    for c, piece in pieces.items():
+        back = ts.split_mesh(state.params, state.ef, parts, c, grid.shape,
+                             device="cuda")
+        restored_equal = restored_equal and trees_bit_equal(torch, tree, back, piece)
+        slabs = [engine.MatrixPayloads.build(t[0], t[1].comp, model.mspecs(small),
+                                             partition=parts.comp)
+                 for t in (piece, back)]
+        for (m_pre, q_pre), (m_back, q_back) in zip(
+                zip(slabs[0].m_bufs, slabs[0].q_bufs),
+                zip(slabs[1].m_bufs, slabs[1].q_bufs)):
+            p_pre = lowrank.lowrank_project(m_pre, q_pre)
+            p_back = lowrank.lowrank_project(m_back, q_back)
+            worst = max(worst, check_close(torch, ref, p_back,
+                                           ref.lowrank_project(m_back, q_back),
+                                           m_back, q_back, "project")[1])
+            p_hat = gram_schmidt(p_back)
+            b_pre = lowrank.lowrank_backproject(m_pre, gram_schmidt(p_pre))
+            b_back = lowrank.lowrank_backproject(m_back, p_hat)
+            worst = max(worst, check_close(torch, ref, b_back,
+                                           ref.lowrank_backproject(m_back, p_hat),
+                                           m_back, p_hat, "backproject")[1])
+            products_equal = (products_equal and torch.equal(p_pre, p_back)
+                              and torch.equal(b_pre, b_back))
+        del back, slabs
+    envelope_mb = os.path.getsize(os.path.join(
+        directory, f"ckpt_{1:010d}.msgpack")) / 1e6
+    shutil.rmtree(directory, ignore_errors=True)
+    small_s = time.perf_counter() - t_small
+    row = {"check": "tp ckpt", "card": smi, "model_size": TP_MODEL,
+           "full_width": {"local_factors": ["/".join(p) for p in local_paths],
+                          "local_factors_differ": local_differ,
+                          "canonical_gb": canonical_gb, "assemble_s": assemble_s,
+                          "split_s": split_s, "round_trip_bit_equal": round_trip,
+                          "growth": f"{RANK} -> {TP_GROW_RANK}",
+                          "growth_bit_equal": grown_ok, "seconds": full_s,
+                          "peak_gib": peak_gib, "launches": launches},
+           "reduced": {"grid": [TP_CKPT_DATA, TP_MODEL], "envelope_mb": envelope_mb,
+                       "model_axis_size": meta["model_axis_size"],
+                       "mesh_shape": meta["mesh_shape"],
+                       "restored_bit_equal": restored_equal,
+                       "products_equal_to_pre_save": products_equal,
+                       "worst_over_tol": worst, "seconds": small_s},
+           "seconds": time.perf_counter() - t0}
+    print(json.dumps(row), flush=True)
+    del pieces, p_c, ef_c, state
+    torch.cuda.empty_cache()
+    if not (local_differ and round_trip and grown_ok and restored_equal
+            and products_equal):
+        raise AssertionError(f"tp ckpt: {row}")
+    if meta["model_axis_size"] != TP_MODEL or meta["mesh_shape"] != grid.shape:
+        raise AssertionError(f"tp ckpt: the envelope's grid {meta}")
+    want = {k: 0 for k in launches}
+    want.update({"lowrank_project": n_buckets, "lowrank_backproject": n_buckets})
+    if launches != want:
+        raise AssertionError(f"tp ckpt: launches {launches}, want {want} (one "
+                             f"pass over each model rank's buckets)")
+    return launches, row
+
+
 def int4_chunk(torch, cfg, model, matrixize, tree, workers, scheme="top_k"):
     """(chunk, parts, (workers, codes)): the int4 chunk ``scheme``'s gather
     packs each step on ``cfg``, the payload parts it plans from (meta
@@ -5182,6 +5420,13 @@ def main() -> None:
     tp_launches = dist_launches["tp"]
     print(f"tp: {time.perf_counter() - t_tp:.1f} s (and (a) in phase 5)")
 
+    # -- 21. mesh-aware checkpoints and rank schedules on a model axis -------
+    t_tp_ckpt = time.perf_counter()
+    tp_ckpt_launches, _ = tp_ckpt_phase(
+        torch, kernel_mods, cfg, llama3_8b.reduced_config(),
+        (model, compressors, powersgd, train, tree, lowrank, ref), smi)
+    print(f"tp ckpt: {time.perf_counter() - t_tp_ckpt:.1f} s")
+
     # launches of each kernel on every path this run drove
     paths = {"llama powersgd": psgd, "llama top_k_int4": topk,
              **{f"dist {k}": v for k, v in dist_launches.items()},
@@ -5197,7 +5442,8 @@ def main() -> None:
              **tuned_launches, "checkpoint llama powersgd": ckpt_launches,
              **{f"staleness {k}": v for k, v in stale_launches.items()},
              **{f"sync {k}": v for k, v in sync_launches.items()},
-             **{f"profiles {k}": v for k, v in profile_launches.items()}}
+             **{f"profiles {k}": v for k, v in profile_launches.items()},
+             "tp ckpt": tp_ckpt_launches}
     by_path = lambda kernel: {p: v[kernel] for p, v in paths.items() if v[kernel]}
 
     summary = []
@@ -5214,6 +5460,7 @@ def main() -> None:
             "library_ms": t["library_ms"],
             "launches_by_path": by_path(f"lowrank_{kind}"),
             "tp_launches": tp_launches[f"lowrank_{kind}"],
+            "tp_ckpt_launches": tp_ckpt_launches[f"lowrank_{kind}"],
             # phase 20 (b): one model rank's local slabs at M = 2, the mean
             # over the ranks
             "tp_slab_ms": sum(r["kernel_graph_ms"] for r in tp_rows
@@ -5233,7 +5480,8 @@ def main() -> None:
             "copy_floor_ms": row["copy_floor_ms"] * per_step,
             "cold_shape": row["cold"]["shape"], "cold_ms": row["cold"]["kernel_ms"],
             "cold_bound_ms": row["cold"]["bound_ms"],
-            "launches_by_path": by_path(name), "tp_launches": tp_launches[name]})
+            "launches_by_path": by_path(name), "tp_launches": tp_launches[name],
+            "tp_ckpt_launches": tp_ckpt_launches[name]})
     summary.append({
         "name": "ef_apply", "route": "cuda",
         "source": "src/repro_torch/csrc/ef_apply.cu",
@@ -5245,7 +5493,8 @@ def main() -> None:
         "library_ms": None,
         "launches_by_path": {
             "its entry point (no training path calls it)": ef_launches},
-        "tp_launches": tp_launches["ef_apply"]})
+        "tp_launches": tp_launches["ef_apply"],
+        "tp_ckpt_launches": tp_ckpt_launches["ef_apply"]})
     print(f"kernel times are per training step: lowrank sums over the "
           f"{len(buckets)} bucket slabs (rank {RANK}, {WORKERS} workers), "
           f"nibble kernels at the Top-K int4 chunk {chunk_shape}; ef_apply "

@@ -8,6 +8,6 @@ from repro_torch.checkpoint.msgpack_ckpt import (
     checkpoint_meta, decode_leaf, latest_step, load_envelope,
     restore_checkpoint, save_checkpoint)
 from repro_torch.checkpoint.train_state import (
-    TrainState, canonicalize_dist, canonicalize_mesh, canonicalize_sim,
-    replicate_dist, replicate_mesh, replicate_sim, restore_train_state,
-    save_train_state, stack_model_template)
+    TrainState, canonicalize_mesh, canonicalize_sim, replicate_mesh,
+    replicate_sim, restore_train_state, save_train_state,
+    stack_model_template)

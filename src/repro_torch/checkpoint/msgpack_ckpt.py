@@ -525,7 +525,7 @@ def restore_tree(payload: dict, template: Any, shape_ok=None) -> Any:
     is a contiguous tensor of its shape is read into that tensor in place
     (the returned tree holds the template's tensors); any other becomes a
     new tensor on the template leaf's device (a numpy array where the
-    template holds one)."""
+    template holds one, a CPU tensor where it is on the ``meta`` device)."""
     t_pairs = flatten_with_paths(template)
     encoded = payload["leaves"]
     if len(encoded) != len(t_pairs):
@@ -559,13 +559,15 @@ def restore_tree(payload: dict, template: Any, shape_ok=None) -> Any:
                 f"template {ws}")
     leaves = []
     for d, (_, want) in zip(encoded, t_pairs):
-        if (isinstance(want, torch.Tensor) and want.is_contiguous()
+        device = want.device if isinstance(want, torch.Tensor) else "cpu"
+        if device == torch.device("meta"):     # shapes alone: a new host tensor
+            leaves.append(decode_leaf(d, like=want, device="cpu"))
+        elif (isinstance(want, torch.Tensor) and want.is_contiguous()
                 and tuple(d["shape"]) == tuple(want.shape)):
             _fill(want, d["data"])
             leaves.append(want)
         else:
-            leaves.append(decode_leaf(
-                d, like=want, device=getattr(want, "device", "cpu")))
+            leaves.append(decode_leaf(d, like=want, device=device))
     return unflatten(template, leaves)
 
 

@@ -30,8 +30,13 @@ Canonical worker layout: what is identical on every worker (parameters,
 momentum, Q factors, step, the in-flight aggregate) is stored once; the
 per-worker error buffers are stacked ``(W, ...)``.  The simulated step
 already holds its state so (:func:`canonicalize_sim`); the distributed
-step keeps each rank's own buffer, which :func:`canonicalize_dist`
-gathers.  Restoring into another worker count rescales the buffers
+step keeps each rank's own buffer, which :func:`canonicalize_mesh`
+gathers over the data group; on a model axis > 1 it also joins
+the model-sharded leaves to global shape and stacks each model-LOCAL Q
+factor per model rank on a leading ``(M,)`` dim, as the JAX package's
+envelope holds them; :func:`stack_model_template` and
+:func:`replicate_mesh` undo it at a resume on a grid of the same model
+degree.  Restoring into another worker count rescales the buffers
 (:func:`repro_torch.core.error_feedback.rescale_error_buffers`; same-W is
 bit-exact), and the template's factors may sit at another rank than the
 checkpoint's (the checkpoint's win).
@@ -51,14 +56,17 @@ import dataclasses
 from typing import Any, Optional, Tuple
 
 import numpy as np
+import torch
+import torch.distributed as tdist
 
 from repro_torch import tree
 from repro_torch.checkpoint.msgpack_ckpt import (
     MODEL_AXIS_KEY, CheckpointError, ZeroBytes, check_model_axis, dtype_token,
     flatten_with_paths, load_envelope, restore_tree, save_checkpoint)
 from repro_torch.core import error_feedback
-from repro_torch.core.dist import DistBackend
+from repro_torch.core.engine import MODEL_LOCAL, StatePartition
 from repro_torch.core.error_feedback import EFState
+from repro_torch.sharding import P, mentions, shard
 
 TRAIN_STATE_VERSION = 2
 KEY_DTYPE = "key<fry>"   # the JAX package's tag of jax.random.key's data
@@ -137,21 +145,19 @@ def save_train_state(directory: str, state: TrainState, *,
     """Write one checkpoint at ``state.ef.step``.
 
     ``state`` is in the canonical worker layout (:func:`canonicalize_sim`,
-    :func:`canonicalize_dist`).  ``controller`` is the run's
-    :class:`~repro_torch.core.powersgd.RankController`, saved in ``meta``
-    so that a resume continues the schedule.  ``model_axis_size`` and
-    ``mesh_shape`` are recorded as the JAX package records them; the port
-    has no model axis (ROADMAP queue A, item 14), so the degree is 1."""
-    if int(model_axis_size) != 1:
-        raise NotImplementedError(
-            "a model axis (tensor parallelism) is not ported yet (ROADMAP "
-            "queue A, item 14): the port saves at model_axis_size=1")
+    :func:`canonicalize_mesh`).  ``controller``
+    is the run's :class:`~repro_torch.core.powersgd.RankController`, saved
+    in ``meta`` so that a resume continues the schedule.
+    ``model_axis_size`` and ``mesh_shape`` record the (data, model) grid
+    the state was gathered on, as the JAX package records them; a restore's
+    degree guard (:func:`~repro_torch.checkpoint.msgpack_ckpt.
+    check_model_axis`) reads the former."""
     meta = {
         "train_state_version": TRAIN_STATE_VERSION,
         "workers": _error_workers(state.ef),
         "key_dtype": KEY_DTYPE,
         "controller": None if controller is None else controller.state_dict(),
-        MODEL_AXIS_KEY: 1,
+        MODEL_AXIS_KEY: int(model_axis_size),
         "mesh_shape": mesh_shape,
     }
     meta.update(extra_meta or {})
@@ -290,46 +296,231 @@ def replicate_sim(sim, params, ef: EFState) -> Tuple[Any, EFState]:
         ef, error=error_feedback.rescale_error_buffers(ef.error, sim.workers))
 
 
-def canonicalize_dist(params, ef: EFState, group=None
-                      ) -> Tuple[Any, EFState]:
-    """A distributed run's state (each rank's own error buffer, no worker
-    dim) in the canonical layout: every rank's buffers gathered into
-    ``(W, ...)`` stacks in rank order, the counterpart of the JAX
-    package's global error arrays; parameters, momentum, factors and the
-    in-flight aggregate, identical on every rank, pass through.  A
-    collective: every rank of ``group`` calls it (rank 0 then writes the
-    envelope)."""
-    backend = DistBackend(group)
-    return params, dataclasses.replace(
-        ef, error=tree.map(backend.all_gather, ef.error))
+# ---------------------------------------------------------------------------
+# the (data, model) grid ⇄ canonical layout
+# ---------------------------------------------------------------------------
+#
+# The canonical tree of a grid is the JAX package's envelope tree, leaf for
+# leaf: parameters, momentum and the in-flight aggregate at global shape
+# (joined along their model-sharded dims), error buffers (D, global shape),
+# model-sharded Q factors joined along the dim their spec names,
+# model-replicated leaves once, and model-LOCAL Q factors (a row-parallel
+# weight's, each model rank's own content behind a replicated-shaped spec)
+# stacked on a leading (M,) dim.  The layout is read off the partition
+# records of ``repro_torch.launch.train.train_state_partition``.
+# :func:`assemble_mesh` / :func:`split_mesh` are the pure halves, one process
+# holding every coordinate's pieces; :func:`canonicalize_mesh` /
+# :func:`replicate_mesh` are the collective wrappers, one process per
+# coordinate.
+
+def _model_size(shape, model_axis: str) -> int:
+    return int(shape.get(model_axis, 1))
 
 
-def replicate_dist(params, ef: EFState, group=None) -> Tuple[Any, EFState]:
-    """The canonical state onto this rank of ``group``: the error buffers
-    rescaled to the group's size (if it differs from the saved worker
-    count) and this rank's row taken, in storage of its own; the rest
-    passes through."""
-    import torch.distributed as tdist
-
-    rank, world = tdist.get_rank(group), tdist.get_world_size(group)
-    stacked = error_feedback.rescale_error_buffers(ef.error, world)
-    return params, dataclasses.replace(
-        ef, error=tree.map(lambda e: e[rank].clone(), stacked))
+def _is_local(part, size: int) -> bool:
+    """A model-LOCAL leaf on a model axis > 1 (at degree 1 the class has one
+    copy and is stored as it is)."""
+    return size > 1 and isinstance(part, StatePartition) and part.model == MODEL_LOCAL
 
 
-def canonicalize_mesh(*args, **kwargs):
-    raise NotImplementedError(
-        "model-parallel checkpoints (canonicalize_mesh) wait for tensor "
-        "parallelism, ROADMAP queue A, item 14")
+def _sharded_dim(spec, model_axis: str) -> Optional[int]:
+    dims = [d for d, e in enumerate(tuple(spec)) if mentions(e, model_axis)]
+    if len(dims) > 1:
+        raise ValueError(f"{spec} carries {model_axis!r} on more than one dim")
+    return dims[0] if dims else None
 
 
-def replicate_mesh(*args, **kwargs):
-    raise NotImplementedError(
-        "model-parallel checkpoints (replicate_mesh) wait for tensor "
-        "parallelism, ROADMAP queue A, item 14")
+def _join(xs, part, size: int, model_axis: str) -> torch.Tensor:
+    """One leaf's pieces of model ranks 0 … M−1 → its canonical leaf."""
+    if _is_local(part, size):
+        return torch.stack(list(xs))
+    dim = _sharded_dim(part.spec, model_axis)
+    return xs[0] if dim is None else torch.cat(list(xs), dim)
 
 
-def stack_model_template(*args, **kwargs):
-    raise NotImplementedError(
-        "model-parallel checkpoints (stack_model_template) wait for tensor "
-        "parallelism, ROADMAP queue A, item 14")
+def _piece(x, part, m: int, size: int, model_axis: str) -> torch.Tensor:
+    """Model rank ``m``'s piece of a canonical leaf (a view)."""
+    if _is_local(part, size):
+        return x[m]
+    return shard(x, part.spec, {model_axis: (m, size)})
+
+
+def _own(x: torch.Tensor, device=None) -> torch.Tensor:
+    """``x`` in contiguous storage of its own, on ``device`` (``None``:
+    where it is)."""
+    return x.to(device=x.device if device is None else device, copy=True,
+                memory_format=torch.contiguous_format)
+
+
+def _row_records(partition: EFState):
+    """The error buffers' records without their leading data-axes entry: a
+    rank's own buffer has no worker dim."""
+    return tree.map(lambda p: StatePartition(spec=P(*tuple(p.spec)[1:]),
+                                             model=p.model), partition.error)
+
+
+def _leafwise(fn, records, *trees):
+    """``fn(record, *leaves)`` over trees aligned with a record tree;
+    ``None`` leaves stay ``None``."""
+    return tree.map(lambda part, *xs: None if xs[0] is None else fn(part, *xs),
+                    records, *trees)
+
+
+def assemble_mesh(pieces, partition: EFState, shape,
+                  model_axis: str = "model") -> Tuple[Any, EFState]:
+    """The canonical tree of a grid from its local trees, in one process:
+    ``pieces[(d, m)]`` is coordinate ``(d, m)``'s ``(params, ef)`` (its
+    error buffers its own, without a worker dim), ``shape`` ``{"data": D,
+    model_axis: M}`` and ``partition`` the run's
+    ``train_state_partition``.  Replicated trees are read off data row 0;
+    the error buffers of every coordinate are joined per data row and
+    stacked ``(D, …)``.  At M = 1 model-LOCAL leaves are stored as they
+    are."""
+    d_size, size = int(shape["data"]), _model_size(shape, model_axis)
+    join = lambda part, *xs: _join(xs, part, size, model_axis)
+    row0 = [pieces[(0, m)] for m in range(size)]
+    field = lambda name: [getattr(ef, name) for _, ef in row0]
+    rows = _row_records(partition)
+    per_row = [_leafwise(join, rows, *[pieces[(d, m)][1].error for m in range(size)])
+               for d in range(d_size)]
+    ef0 = row0[0][1]
+    return _leafwise(join, partition.momentum, *[p for p, _ in row0]), EFState(
+        error=tree.map(lambda *xs: torch.stack(xs), *per_row),
+        momentum=_leafwise(join, partition.momentum, *field("momentum")),
+        comp=_leafwise(join, partition.comp, *field("comp")),
+        step=ef0.step,
+        inflight=(None if ef0.inflight is None
+                  else _leafwise(join, partition.inflight, *field("inflight"))))
+
+
+def split_mesh(params, ef: EFState, partition: EFState, coord, shape,
+               model_axis: str = "model", device=None) -> Tuple[Any, EFState]:
+    """Coordinate ``coord = (d, m)``'s local trees from a canonical tree,
+    the inverse of :func:`assemble_mesh`: every leaf a copy in storage of
+    its own on ``device`` (``None``: where the canonical leaf is), never a
+    view into the canonical tensor.  The error buffers are first rescaled
+    to D workers (:func:`repro_torch.core.error_feedback.
+    rescale_error_buffers`) when the canonical tree was saved at another
+    worker count, then row ``d`` taken."""
+    d, m = (int(c) for c in coord)
+    d_size, size = int(shape["data"]), _model_size(shape, model_axis)
+    take = lambda part, x: _own(_piece(x, part, m, size, model_axis), device)
+    error = error_feedback.rescale_error_buffers(ef.error, d_size)
+    return _leafwise(take, partition.momentum, params), EFState(
+        error=_leafwise(take, _row_records(partition),
+                        tree.map(lambda e: e[d], error)),
+        momentum=_leafwise(take, partition.momentum, ef.momentum),
+        comp=_leafwise(take, partition.comp, ef.comp),
+        step=ef.step,
+        inflight=(None if ef.inflight is None
+                  else _leafwise(take, partition.inflight, ef.inflight)))
+
+
+def _gather(x: torch.Tensor, group) -> Optional[torch.Tensor]:
+    """Every rank of ``group``'s ``x`` stacked in group-rank order, on the
+    group's rank 0; ``None`` on its other ranks.  A group of one gives
+    ``x[None]`` with no collective.  A checkpoint's collective, so not
+    counted in :data:`repro_torch.core.dist.CALLS`: a save between steps
+    leaves the step's counts as they are."""
+    n = tdist.get_world_size(group)
+    if n == 1:
+        return x[None]
+    x = x.contiguous()
+    dst = tdist.get_global_rank(group, 0)
+    if tdist.get_rank(group) != 0:
+        tdist.gather(x, None, dst=dst, group=group)
+        return None
+    out = x.new_empty((n,) + tuple(x.shape))
+    tdist.gather(x, list(out.unbind(0)), dst=dst, group=group)
+    return out
+
+
+def canonicalize_mesh(mesh, params, ef: EFState, partition: EFState,
+                      model_axis: str = "model") -> Tuple[Any, EFState]:
+    """This grid's state in the canonical layout, for
+    :func:`save_train_state` (:func:`assemble_mesh` over the processes).
+    ``mesh`` is the run's :class:`~repro_torch.launch.mesh.Mesh`,
+    ``params``/``ef`` this rank's local trees and ``partition`` the run's
+    ``train_state_partition``.  A collective: every rank calls it; the
+    canonical tree comes back on rank 0 of the default group (coordinate
+    (0, 0), which writes it) and ``(None, None)`` on the others.
+
+    Leaf by leaf, a model-sharded or model-LOCAL leaf is gathered over
+    ``mesh.model_group`` to its model rank 0, and an error buffer then over
+    ``mesh.data_group`` to data rank 0; each leaf a gather built goes to the
+    host at once, so a card holds one gathered leaf at a time on top of its
+    own shards, and only the writer's host holds the gathered tree.  A
+    leaf no gather touched (model-replicated, or any leaf but an error
+    buffer at model degree 1) is rank 0's own tensor, where it lies.  The
+    gathers are not counted in :data:`repro_torch.core.dist.CALLS` or
+    ``MODEL_CALLS``."""
+    size = _model_size(mesh.shape, model_axis)
+    d, m = mesh.coord
+    differs = lambda part: _is_local(part, size) or (
+        size > 1 and _sharded_dim(part.spec, model_axis) is not None)
+
+    def row(part, x):
+        """This data row's joined leaf on its model rank 0, else None."""
+        if not differs(part):
+            return x if m == 0 else None
+        xs = _gather(x, mesh.model_group)
+        return None if xs is None else _join(xs.unbind(0), part, size, model_axis)
+
+    def joined(part, x):
+        if d != 0:
+            return None
+        y = row(part, x)
+        return y if y is None or not differs(part) else y.to("cpu")
+
+    def error(part, x):
+        y = row(part, x)
+        if y is None:
+            return None
+        ys = _gather(y, mesh.data_group)
+        if ys is None:
+            return None
+        gathered = differs(part) or mesh.shape["data"] > 1
+        return ys.to("cpu") if gathered else ys
+
+    ef_c = EFState(
+        error=_leafwise(error, _row_records(partition), ef.error),
+        momentum=_leafwise(joined, partition.momentum, ef.momentum),
+        comp=_leafwise(joined, partition.comp, ef.comp),
+        step=ef.step,
+        inflight=(None if ef.inflight is None
+                  else _leafwise(joined, partition.inflight, ef.inflight)))
+    p_c = _leafwise(joined, partition.momentum, params)
+    return (p_c, ef_c) if mesh.rank == 0 else (None, None)
+
+
+def replicate_mesh(mesh, params, ef: EFState, partition: EFState,
+                   model_axis: str = "model", device=None
+                   ) -> Tuple[Any, EFState]:
+    """The inverse of :func:`canonicalize_mesh`: this rank's local trees
+    (:func:`split_mesh` at ``mesh.coord``), each leaf in storage of its own
+    on ``device``; a model-LOCAL leaf gives each model rank its own
+    pre-save copy back.  The error buffers are rescaled when the grid's
+    data size differs from the saved worker count.  No collective.  The stack's leading dim
+    must be the grid's model degree, which
+    :func:`restore_train_state`'s ``model_axis_size`` guard enforces."""
+    return split_mesh(params, ef, partition, mesh.coord, mesh.shape,
+                      model_axis, device)
+
+
+def stack_model_template(ef: EFState, partition: EFState,
+                         model_axis_size: int) -> EFState:
+    """A restore template in the canonical layout: ``ef`` (global shapes)
+    with each model-LOCAL Q factor given the leading ``(model_axis_size,)``
+    dim the envelope stores it with, as an empty tensor on the ``meta``
+    device (:func:`restore_train_state` reads such a leaf into a new CPU
+    tensor).  Degree 1 is the identity."""
+    size = int(model_axis_size)
+    if size <= 1:
+        return ef
+
+    def stack(part, x):
+        if not _is_local(part, size):
+            return x
+        return torch.empty((size,) + tuple(x.shape), dtype=x.dtype, device="meta")
+
+    return dataclasses.replace(ef, comp=_leafwise(stack, partition.comp, ef.comp))

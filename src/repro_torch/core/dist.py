@@ -32,8 +32,10 @@ whole on every model rank; ``tp_grad_sync=False`` is the reference's
 legacy switch (``lax.psum``'s own transpose, no *g*).  Model-axis calls
 are counted in :data:`MODEL_CALLS`, apart from the data axis's
 :data:`CALLS`; :class:`CollectiveStats` records the data axis only.
-Without a model axis every model collective is the identity.  Still to
-come with ROADMAP queue A, item 14 (A14b): the mesh-aware checkpoints.
+Without a model axis every model collective is the identity.  The
+checkpoints' gathers on a grid
+(:func:`repro_torch.checkpoint.train_state.canonicalize_mesh`) count in
+neither.
 """
 
 from __future__ import annotations

@@ -30,8 +30,9 @@ data-axis collectives only.  :class:`StatePartition` records how each
 state leaf relates to the model axis (replicated, sharded, or model-LOCAL:
 per-rank content behind a replicated-shaped spec), and
 :func:`partition_mismatches` audits a partition tree against a state.
-The mesh-aware checkpoints that read these records wait for ROADMAP queue
-A, item 14 (A14b).
+The mesh-aware checkpoints read these records too
+(:func:`repro_torch.checkpoint.train_state.canonicalize_mesh`: a
+model-LOCAL Q factor is stored stacked per model rank).
 """
 
 from __future__ import annotations

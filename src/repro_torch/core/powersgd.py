@@ -37,9 +37,12 @@ on the host:
   draws the fresh columns of each switch from its base seed, on the CPU,
   per leaf path (the shared-seed manner of
   :func:`repro_torch.core.engine.leaf_generator`), so every worker and
-  every device draws the same columns.  torch cannot make the JAX
-  package's key draws: the two packages' growths agree only when fed the
-  same columns (:meth:`RankController.draw`).
+  every device draws the same columns.  On a model axis a factor whose m
+  dim is model-sharded draws its columns at global shape and keeps its
+  rank's rows, as the JAX package's loop transitions the global sharded
+  state.  torch cannot make the JAX package's key draws: the two
+  packages' growths agree only when fed the same columns
+  (:meth:`RankController.draw`).
 
 Under a model axis each rank compresses its local shards with data-axis
 collectives only.  :func:`factor_partition` / :func:`state_partition`
@@ -310,21 +313,50 @@ def transition_factor(q: torch.Tensor, new_rank: int,
                      dim=-1)
 
 
-def transition_state(state, new_rank, draw: Optional[Callable] = None):
+def _global_rows(draw: Callable, index: int, size: int) -> Callable:
+    """``draw`` for a factor whose m dim is split over ``size`` model ranks:
+    the columns are drawn at the global ``(m · size, extra)`` shape and
+    this rank's rows ``index · m … (index + 1) · m`` are kept, so the
+    pieces of every rank form the global factor's columns."""
+    def rows(path, shape):
+        m, extra = shape
+        return draw(path, (m * size, extra)).narrow(0, index * m, m)
+    return rows
+
+
+def transition_state(state, new_rank, draw: Optional[Callable] = None,
+                     partition=None, model_coord=None):
     """:func:`transition_factor` over a state tree (``None`` leaves pass
     through).  ``new_rank`` is an int (a uniform switch) or a tree of
     per-leaf ints or ``None`` aligned with ``state`` (``None`` leaves that
     factor as it is).  ``draw(path, shape)`` gives a leaf's fresh
-    columns."""
+    columns.
+
+    A model-sharded state: ``partition`` (the :func:`state_partition`
+    records) and ``model_coord = (index, size)``, this rank's place on the
+    model axis.  Where a record's m dim carries the axis, the fresh
+    columns are drawn at the global ``(m · size, extra)`` shape and the
+    rank's m-slice kept, so the gathered factor after a growth is the
+    global factor's growth; model-LOCAL and replicated factors draw at
+    their own m, the same columns on every rank."""
     items = list(tree.items(state))
     ranks = ([new_rank] * len(items) if isinstance(new_rank, int)
              else tree.leaves(new_rank))
-    if len(ranks) != len(items):
-        raise ValueError("the rank tree does not align with the state")
+    parts = ([None] * len(items) if partition is None
+             else tree.leaves(partition))
+    if len(ranks) != len(items) or len(parts) != len(items):
+        raise ValueError("the rank or partition tree does not align with "
+                         "the state")
     out = []
-    for (path, q), r in zip(items, ranks):
-        out.append(q if q is None or r is None
-                   else transition_factor(q, int(r), draw, path))
+    for (path, q), r, part in zip(items, ranks, parts):
+        if q is None or r is None:
+            out.append(q)
+            continue
+        leaf_draw = draw
+        if (draw is not None and part is not None and model_coord is not None
+                and _mentions(tuple(part.spec)[-2], "model")):
+            leaf_draw = _global_rows(draw, *model_coord)
+        out.append(transition_factor(q, int(r), leaf_draw, path))
     return tree.unflatten(state, out)
 
 
@@ -367,15 +399,20 @@ class RankController:
                      else lam * self._ema + (1 - lam) * float(residual))
         return self._ema
 
-    def update(self, comp_state, step: int, residual: Optional[float] = None):
-        """-> ``(comp_state, changed)``."""
+    def update(self, comp_state, step: int, residual: Optional[float] = None,
+               partition=None, model_coord=None):
+        """-> ``(comp_state, changed)``.  On a model axis pass the state's
+        ``partition`` records and this rank's ``model_coord = (index,
+        size)``: a growth then draws a model-sharded factor's columns at
+        global shape and keeps this rank's rows (:func:`transition_state`)."""
         ema = self.observe(residual)
         new = int(self.schedule.next_rank(step, self.rank, ema))
         if new == self.rank:
             return comp_state, False
         n = self.switches
         comp_state = transition_state(
-            comp_state, new, lambda path, shape: self.draw(n, path, shape))
+            comp_state, new, lambda path, shape: self.draw(n, path, shape),
+            partition=partition, model_coord=model_coord)
         self.switches += 1
         self.rank = new
         self.history.append((step, new))
@@ -431,8 +468,12 @@ def init_state(cfg: PowerSGDConfig, shapes, specs,
         if ms is None:
             return None
         batch_shape, _, m = ms
-        return torch.randn(batch_shape + (m, cfg.rank), generator=generator,
-                           dtype=cfg.dtype, device=device)
+        shape = batch_shape + (m, cfg.rank)
+        if device is not None and torch.device(device).type == "meta":
+            # shapes alone: torch's meta randn imports torch._dynamo
+            return torch.empty(shape, dtype=cfg.dtype, device="meta")
+        return torch.randn(shape, generator=generator, dtype=cfg.dtype,
+                           device=device)
 
     return tree.map(init_leaf, shapes, specs)
 

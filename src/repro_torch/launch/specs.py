@@ -4,8 +4,10 @@ half of ``repro.launch.specs``).
 :func:`ef_partition` is the single source of the state's partition
 records: the step builder slices the initial state by their specs
 (:func:`partition_specs`) and hands the compressor's part to the bucketed
-engine; the mesh-aware checkpoints will read them too (ROADMAP queue A,
-item 14, A14b).
+engine; the mesh-aware checkpoints read them too
+(:func:`repro_torch.checkpoint.train_state.canonicalize_mesh`,
+:func:`~repro_torch.checkpoint.train_state.replicate_mesh`,
+:func:`~repro_torch.checkpoint.train_state.stack_model_template`).
 
 The rest of the reference module (``batch_pspecs``, ``batch_specs``,
 ``with_sharding``, ``decode_layout``, ``abstract_cache``) serves the

@@ -51,9 +51,14 @@ repro_torch.launch.train``: the JAX package's flags, printed lines,
 checkpoints (:mod:`repro_torch.checkpoint`, envelopes either package
 reads) and resume guards, one process per worker, ``--sync-mode
 broadcast`` included.  Four or more processes form a (world/2, 2) grid,
-as the JAX CLI forms its mesh; checkpoints, resume and rank schedules on a
-model axis of 2 wait for ROADMAP queue A, item 14 (A14b), and raise
-naming it.
+as the JAX CLI forms its mesh, and save, resume and drive rank schedules
+on it as the JAX CLI does: :func:`~repro_torch.checkpoint.train_state.
+canonicalize_mesh` before a save, :func:`global_template` →
+:func:`~repro_torch.checkpoint.train_state.stack_model_template` →
+``restore_train_state(model_axis_size=M)`` →
+:func:`~repro_torch.checkpoint.train_state.replicate_mesh` at a resume, and
+the controller given the state's partition and the rank's model
+coordinate.
 """
 
 from __future__ import annotations
@@ -226,10 +231,6 @@ def _make_step(cfg: ModelConfig, hyper: TrainHyper,
     m_size = 1 if mesh is None else mesh.shape["model"]
     parts = None
     if mesh is not None:
-        if m_size > 1 and getattr(compressor, "rank_schedule", None) is not None:
-            raise NotImplementedError(
-                "rank schedules on a model axis > 1 (new columns drawn at "
-                "global shape and sliced) wait for ROADMAP queue A, item 14")
         parts = train_state_partition(cfg, mesh, compressor, hyper.staleness)
         if hasattr(compressor, "bind_state_partition"):
             compressor.bind_state_partition(parts.comp)
@@ -324,7 +325,11 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper,
     state instead (its whole leaves are used in place).  Every tree the step
     takes and returns is the rank's local one; ``metrics["lm_loss"]`` is
     averaged over the data ranks, then over the model ranks.  A rank
-    schedule on a model axis > 1 raises (ROADMAP queue A, item 14).
+    schedule's controller transitions the local state given the
+    partition's records and the rank's model coordinate,
+    ``ctl.update(ef.comp, i, residual, partition=train_state_partition(
+    cfg, mesh).comp, model_coord=mesh.coords["model"])``, so that a growth
+    draws a model-sharded factor's columns at global shape.
     """
     if mesh is not None and group is not None:
         raise ValueError("make_train_step takes a group or a mesh, not both")
@@ -552,20 +557,22 @@ def main(argv=None) -> None:
                 tdist.destroy_process_group()
 
 
-def check_model_axis_options(args, model_size: int) -> None:
-    """Raise, before any step, for the options that wait on a model axis
-    > 1: checkpoints and resume (the mesh-aware envelope) and rank
-    schedules (ROADMAP queue A, item 14)."""
-    if model_size == 1:
-        return
-    for flag, value in (("--ckpt-dir", args.ckpt_dir),
-                        ("--resume", args.resume),
-                        ("--rank-schedule", args.rank_schedule)):
-        if value:
-            raise NotImplementedError(
-                f"{flag} on a model axis of {model_size} (mesh-aware "
-                f"checkpoints and rank transitions of a sharded state) waits "
-                f"for ROADMAP queue A, item 14")
+def global_template(cfg: ModelConfig, mesh, compressor: Compressor,
+                    staleness: str = "none"):
+    """``(params, ef)`` of ``mesh``'s global state as empty tensors on the
+    ``meta`` device: parameters at ``model_shards=M`` (heads and vocabulary
+    padded), error buffers ``(D,) + shape``, momentum, the compressor's
+    state at its initial rank and, under ``staleness="one_step"``, the
+    in-flight aggregate.  The restore template of a grid, before
+    :func:`~repro_torch.checkpoint.train_state.stack_model_template` (the
+    twin of the JAX CLI's global ``init_state``; nothing is drawn)."""
+    params = model.init(cfg, None, "meta", model_shards=mesh.shape["model"])
+    empty = lambda lead: tree.map(lambda p: torch.empty(
+        lead + tuple(p.shape), dtype=p.dtype, device="meta"), params)
+    return params, EFState(
+        error=empty((mesh.shape["data"],)), momentum=empty(()),
+        comp=compressor.init(params, model.mspecs(cfg)), step=0,
+        inflight=empty(()) if staleness == "one_step" else None)
 
 
 def _train(args, cfg, dev) -> None:
@@ -577,14 +584,14 @@ def _train(args, cfg, dev) -> None:
         shape = mesh_lib.cli_shape(world)
     except ValueError as e:
         raise SystemExit(str(e))
-    check_model_axis_options(args, shape[1])
     if args.batch % shape[0]:
         over = f"{world} processes" if shape[1] == 1 else f"{shape[0]} data ranks"
         raise SystemExit(f"--batch {args.batch} does not split over {over}")
     mesh = mesh_lib.make_mesh(shape)
     data_rank, data_size = mesh.coords["data"]
+    model_size = shape[1]
     say = print if rank == 0 else (lambda *a, **k: None)
-    if shape[1] > 1:
+    if model_size > 1:
         say(f"mesh (data, model) = {shape}")
     hyper = TrainHyper(lr=args.lr, rank=args.rank, q_chunk=64,
                        warmup_steps=20, rank_schedule=args.rank_schedule,
@@ -597,16 +604,22 @@ def _train(args, cfg, dev) -> None:
                                           device=dev, mesh=mesh)
     controller = (compressor.controller()
                   if compressor.rank_schedule is not None else None)
+    # the state's partition records: which leaves are model-sharded and which
+    # model-LOCAL (a row-parallel weight's Q, stacked per model rank in the
+    # envelope; a growth draws a sharded factor's columns at global shape)
+    parts = train_state_partition(cfg, mesh, compressor, args.staleness)
     seed = 0   # the base seed (the JAX package's jax.random.key(0))
     params, ef = init_state(torch.Generator(dev).manual_seed(0))
     data = MarkovLM(vocab=cfg.vocab_size, seed=0)
 
     start, residual = 0, None
     if args.resume:
-        p_c, ef_c = ts.canonicalize_dist(params, ef)
-        template = ts.TrainState(params=p_c, ef=ef_c, seed=seed)
+        p_t, ef_t = global_template(cfg, mesh, compressor, args.staleness)
+        template = ts.TrainState(
+            params=p_t, ef=ts.stack_model_template(ef_t, parts, model_size),
+            seed=seed)
         state, meta = ts.restore_train_state(args.ckpt_dir, template,
-                                             model_axis_size=1)
+                                             model_axis_size=model_size)
         if meta.get("rank_schedule") != args.rank_schedule:
             raise SystemExit(
                 f"--rank-schedule {args.rank_schedule!r} does not match the "
@@ -619,7 +632,10 @@ def _train(args, cfg, dev) -> None:
                 f"envelope does (not) carry an in-flight aggregate; resume "
                 f"with the mode the run was started with")
         check_wire_dtype_meta(meta, args.wire_dtype)
-        params, ef = ts.replicate_dist(state.params, state.ef)
+        # each model rank takes its own slices, a model-LOCAL factor its own
+        # pre-save copy (not model rank 0's)
+        params, ef = ts.replicate_mesh(mesh, state.params, state.ef, parts,
+                                       device=dev)
         seed = state.seed
         start = int(state.ef.step)
         if state.data_step != start:
@@ -637,17 +653,18 @@ def _train(args, cfg, dev) -> None:
 
     def save_ckpt():
         # the state after the step that just completed: "about to run step
-        # ef.step"; a collective (the error buffers are gathered), rank 0
+        # ef.step"; a collective (the grid's leaves are gathered), rank 0
         # writes
-        p_c, ef_c = ts.canonicalize_dist(params, ef)
+        p_c, ef_c = ts.canonicalize_mesh(mesh, params, ef, parts)
         if rank != 0:
             return None
         return ts.save_train_state(
             args.ckpt_dir,
             ts.TrainState(params=p_c, ef=ef_c, seed=seed,
                           data_step=int(ef.step)),
-            controller=controller, keep=args.ckpt_keep, model_axis_size=1,
-            mesh_shape={"data": world, "model": 1},
+            controller=controller, keep=args.ckpt_keep,
+            model_axis_size=model_size,
+            mesh_shape={"data": shape[0], "model": model_size},
             extra_meta={"rank_schedule": args.rank_schedule,
                         "arch": args.arch, "last_residual": residual,
                         "staleness": args.staleness,
@@ -659,7 +676,9 @@ def _train(args, cfg, dev) -> None:
     metrics = {}
     for i in range(start, args.steps):
         if controller is not None:
-            new_comp, changed = controller.update(ef.comp, i, residual)
+            new_comp, changed = controller.update(
+                ef.comp, i, residual, partition=parts.comp,
+                model_coord=mesh.coords["model"])
             if changed:
                 ef = error_feedback.replace_comp(ef, new_comp)
                 say(f"step {i:4d} rank -> {controller.rank}")

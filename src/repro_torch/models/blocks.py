@@ -42,7 +42,7 @@ def init(cfg: ModelConfig, generator, device=None, dtype=torch.float32,
     periods = [{f"slot{i}": _slot_init(cfg, generator, device, dtype,
                                        model_shards)
                 for i in range(cfg.period)} for _ in range(cfg.num_periods)]
-    return tree.map(lambda *xs: torch.stack(xs), *periods)
+    return tree.map(common.stack, *periods)
 
 
 def pspecs(cfg: ModelConfig):

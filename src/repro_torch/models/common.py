@@ -36,11 +36,30 @@ from repro_torch.core.matrixize import MatrixSpec
 from repro_torch.sharding import P
 
 
+def _randn(shape, scale: float, generator, device, dtype) -> torch.Tensor:
+    """``scale · torch.randn``; on the ``meta`` device an empty tensor,
+    because torch's meta ``randn`` and meta arithmetic import
+    ``torch._dynamo`` (seconds of a process's start) to make a tensor
+    without data."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(shape, device="meta", dtype=dtype)
+    return torch.randn(shape, generator=generator, device=device,
+                       dtype=dtype) * scale
+
+
+def stack(*xs: torch.Tensor) -> torch.Tensor:
+    """``torch.stack(xs)``; meta tensors give an empty one (see
+    :func:`_randn`)."""
+    if xs[0].is_meta:
+        return torch.empty((len(xs),) + tuple(xs[0].shape), dtype=xs[0].dtype,
+                           device="meta")
+    return torch.stack(xs)
+
+
 def dense_init(shape, in_axis_size: int, generator: Optional[torch.Generator],
                device=None, dtype=torch.float32) -> torch.Tensor:
     scale = 1.0 / math.sqrt(in_axis_size)
-    return torch.randn(shape, generator=generator, device=device,
-                       dtype=dtype) * scale
+    return _randn(shape, scale, generator, device, dtype)
 
 
 def rmsnorm_init(d: int, device=None, dtype=torch.float32) -> torch.Tensor:
@@ -72,8 +91,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 def embed_init(vocab: int, d: int, generator, device=None,
                dtype=torch.float32) -> torch.Tensor:
-    return torch.randn((vocab, d), generator=generator, device=device,
-                       dtype=dtype) * 0.02
+    return _randn((vocab, d), 0.02, generator, device, dtype)
 
 
 def grad_synced(x: torch.Tensor, ctx: MeshCtx = SINGLE) -> torch.Tensor:

@@ -467,21 +467,32 @@ def test_restore_rescales_error_buffers_as_the_reference(tmp_path, w_new, path):
 
 def test_model_axis_guard_names_both_sizes(tmp_path):
     """The reference saves at model degree 2: the port's restore at 1 names
-    both sizes; the port saves only at 1 (ROADMAP queue A, item 14)."""
-    jckpt.save_train_state(str(tmp_path), _jax_train_state(), model_axis_size=2,
-                           mesh_shape={"data": 2, "model": 2})
+    both sizes.  The port saves at model degree 2 too, recording the degree
+    and the grid as the reference does; its own envelope restores at 2 and
+    is refused at 1 and 4, naming both sizes."""
+    jckpt.save_train_state(str(tmp_path / "jax"), _jax_train_state(),
+                           model_axis_size=2, mesh_shape={"data": 2, "model": 2})
     with pytest.raises(ckpt.CheckpointError,
                        match="model_axis_size=2.*model_axis_size=1"):
-        ckpt.restore_train_state(str(tmp_path), _train_state(), model_axis_size=1)
+        ckpt.restore_train_state(str(tmp_path / "jax"), _train_state(),
+                                 model_axis_size=1)
     ckpt.check_model_axis({}, 1)
     with pytest.raises(ckpt.CheckpointError, match="model_axis_size=1.*=2"):
         ckpt.check_model_axis({}, 2)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ckpt.save_train_state(str(tmp_path), _train_state(), model_axis_size=2)
-    for fn in (ckpt.canonicalize_mesh, ckpt.replicate_mesh,
-               ckpt.stack_model_template):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            fn(None, None, None)
+    ckpt.save_train_state(str(tmp_path / "port"), _train_state(),
+                          model_axis_size=2, mesh_shape={"data": 2, "model": 2})
+    meta = ckpt.checkpoint_meta(str(tmp_path / "port"))
+    want = jckpt.checkpoint_meta(str(tmp_path / "jax"))
+    for key in ("model_axis_size", "mesh_shape"):
+        assert meta[key] == want[key]
+    _, meta = ckpt.restore_train_state(str(tmp_path / "port"), _train_state(),
+                                       model_axis_size=2)
+    assert meta["model_axis_size"] == 2
+    for size in (1, 4):
+        with pytest.raises(ckpt.CheckpointError,
+                           match=f"model_axis_size=2.*model_axis_size={size}"):
+            ckpt.restore_train_state(str(tmp_path / "port"), _train_state(),
+                                     model_axis_size=size)
 
 
 def test_in_flight_aggregate_is_not_taken(tmp_path):

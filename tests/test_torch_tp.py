@@ -38,8 +38,24 @@ starts them all before the first test.  The reference's coordinates are read off
   per leaf: the sharded products sum in another order, and the measured
   gap, 1.1–1.3e-6 on every leaf, is float32's noise for this model.
 
-Feeding draws through ``Compressor.draw`` is not needed here: PowerSGD's
-warm start and Top-K draw nothing.  ``python tests/test_torch_tp.py``
+* (7) Checkpoints of the grid: after the bucketed and one-step runs each
+  package writes its (2, 2) envelope (the port through
+  ``canonicalize_mesh``, the reference through its ``canonicalize_mesh``
+  + ``save_train_state``): the same leaf paths, dtypes and shapes, the
+  values within the step tolerances, each model-LOCAL factor stacked with
+  distinct entries.  The reference restores the port's envelope
+  (``restore_train_state`` + ``replicate_mesh``, placed as its step
+  places state) and every port rank restores it as the CLI does: bit for
+  bit at every coordinate.  The checkpoint's gathers count in neither
+  ``dist.CALLS`` nor ``dist.MODEL_CALLS``, and only the writer, rank 0,
+  gets the canonical tree back.
+* (8) A growth of the bucketed run's factors 2 → 4: fed the reference's
+  columns at global shape, against the reference's ``transition_state``
+  of its global sharded factors; and, port only, the joined local growths
+  against the growth of the joined factors, bit for bit.
+
+Feeding draws through ``Compressor.draw`` is not needed for the steps:
+PowerSGD's warm start and Top-K draw nothing.  ``python tests/test_torch_tp.py``
 prints the largest gaps behind the tolerances.
 """
 
@@ -62,8 +78,9 @@ import torch.distributed as tdist
 import torch.multiprocessing as mp
 
 from repro_torch import bridge, tree
+from repro_torch.checkpoint import train_state as ts
 from repro_torch.configs import llama3_8b
-from repro_torch.core import compressors, dist, engine
+from repro_torch.core import compressors, dist, engine, powersgd
 from repro_torch.data.synthetic import MarkovLM
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import train
@@ -96,6 +113,10 @@ RENDEZVOUS_S = 60
 RESULTS_S = 170
 LOSS_RTOL, PARAM_ATOL, STATE_ATOL = 1e-5, 2e-6, 1e-5
 GRAD_ATOL = 1e-5
+# (7) the paths whose state after STEPS steps each package writes as a (2, 2)
+# envelope, and the rank the bucketed path's factors then grow to
+CKPT_PATHS = ("bucketed", "stale")
+GROW_RANK, GROW_SEED = 4, 41
 # Top-K/int4 under the rule chip_smoke.py holds it to (its flip rule): float32
 # rounding between the packages can move a coordinate across the top-k
 # boundary or an int4 code across a rounding boundary (ROADMAP C3), which
@@ -190,9 +211,11 @@ def _reference_main(directory, part):
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as JP
 
+    from repro import checkpoint as jckpt
     from repro.configs import llama3_8b as jllama
     from repro.core import compressors as jcomp
     from repro.core import dist as jdist
+    from repro.core import powersgd as jpowersgd
     from repro.core.error_feedback import EFState as JEF
     from repro.launch import train as jtrain
     from repro.models import model as jmodel
@@ -215,7 +238,8 @@ def _reference_main(directory, part):
         return np.stack([np.stack(row) for row in grid])
 
     out = {"coords": {str(k): v for k, v in coord.items()}, "steps": {},
-           "grads": {}}
+           "grads": {}, "restored": {}}
+    placed = {}     # path: (params, ef, partition, shardings) after the steps
     cfg = jllama.reduced_config()
     paths, cases = REFERENCE_PARTS[part]
     for path in paths:
@@ -249,15 +273,30 @@ def _reference_main(directory, part):
             losses.append(float(np.asarray(m["lm_loss"])))
             drifts.append({k: float(np.asarray(v)) for k, v in m.items()
                            if k.startswith("drift_")})
-        tm = lambda t, **kw: jax.tree_util.tree_map(
-            lambda x: local(x, **kw), t)
         out["steps"][path] = {
             "losses": losses, "drifts": drifts,
-            "records": _records(stats),
-            "params": tm(params), "momentum": tm(ef.momentum),
-            "error": tm(ef.error, lead_data=True),
-            "q": None if ef.comp is None else tm(ef.comp),
-            "inflight": None if ef.inflight is None else tm(ef.inflight)}
+            "records": _records(stats), **_locals(local, params, ef)}
+        if path in CKPT_PATHS:
+            # (7): the envelope of the state after the steps
+            parts = jtrain.train_state_partition(cfg, mesh, None, hyper.staleness)
+            p_c, ef_c = jckpt.canonicalize_mesh(mesh, params, ef, parts)
+            jckpt.save_train_state(
+                os.path.join(directory, f"reference_{path}"), jckpt.TrainState(
+                    params=p_c, ef=ef_c, key=jax.random.key(0),
+                    data_step=jnp.asarray(STEPS, jnp.int32)),
+                model_axis_size=M, mesh_shape={"data": D, "model": M})
+            with jax.set_mesh(mesh):
+                placed[path] = (params, ef, parts, abstract())
+        if path == "bucketed":
+            # (8): a growth of the global sharded factors, the columns drawn
+            # from the key the port's controller is fed; outside the mesh
+            # context, as its CLI's host loop transitions them
+            grown = jpowersgd.transition_state(ef.comp, GROW_RANK,
+                                               jax.random.key(GROW_SEED))
+            grown = jax.tree_util.tree_map(
+                lambda g, q: g if g.sharding == q.sharding
+                else jax.device_put(g, q.sharding), grown, ef.comp)
+            out["grown"] = jax.tree_util.tree_map(local, grown)
     jtrain.MeshCtx = jdist.MeshCtx
 
     for case in cases:
@@ -285,8 +324,39 @@ def _reference_main(directory, part):
             "loss": np.asarray(loss),
             "grads": {(d, m): jax.tree_util.tree_map(lambda x: x[d, m], g)
                       for d in range(D) for m in range(M)}}
+    for path, (params, ef, parts, sds) in placed.items():
+        # (7): the port's envelope of the same path, restored as the
+        # reference's CLI restores one and placed as its step places state
+        port_dir = os.path.join(directory, f"port_{path}")
+        deadline = time.monotonic() + RESULTS_S
+        while jckpt.latest_step(port_dir) != STEPS:
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"no port envelope in {port_dir}")
+            time.sleep(0.2)
+        template = jckpt.TrainState(
+            params=params, ef=jckpt.stack_model_template(ef, parts, M),
+            key=jax.random.key(0), data_step=jnp.zeros((), jnp.int32))
+        state, _ = jckpt.restore_train_state(port_dir, template,
+                                             model_axis_size=M)
+        with jax.set_mesh(mesh):
+            rp, ref_ef = jckpt.replicate_mesh(mesh, state.params, state.ef, parts)
+        rp, ref_ef = (jax.device_put(x, jax.tree_util.tree_map(
+            lambda a: a.sharding, y)) for x, y in zip((rp, ref_ef), sds))
+        out["restored"][path] = _locals(local, rp, ref_ef)
     with open(os.path.join(directory, f"reference_{part}.pkl"), "wb") as f:
         pickle.dump(out, f)
+
+
+def _locals(local, params, ef):
+    """Every coordinate's arrays of the reference's state (``local`` reads a
+    global array's shards off the devices)."""
+    import jax
+
+    tm = lambda t, **kw: None if t is None else jax.tree_util.tree_map(
+        lambda x: local(x, **kw), t)
+    return {"params": tm(params), "momentum": tm(ef.momentum),
+            "error": tm(ef.error, lead_data=True), "q": tm(ef.comp),
+            "inflight": tm(ef.inflight)}
 
 
 def _reference_inputs():
@@ -305,6 +375,7 @@ def _reference_inputs():
     params, comp = start(cfg)
     padded = start(_cfg("padded"))[0]
     return {"start": {"params": params, "comp": comp},
+            "grow_cols": _grow_columns(comp),
             "batches": _batches(cfg.vocab_size, STEPS),
             "grad_start": {"sync_on": params, "sync_off": params,
                            "padded": padded, "local_kv": params},
@@ -314,9 +385,86 @@ def _reference_inputs():
                            "local_kv": _batches(cfg.vocab_size, 1, 3)[0]}}
 
 
+def _grow_columns(comp):
+    """The reference's fresh columns of a growth of the global factors
+    ``comp`` to GROW_RANK under ``jax.random.key(GROW_SEED)``, keyed by
+    leaf path, at global shape: ``normal(leaf_key(key, path), (m, extra))``
+    as its ``transition_state`` draws them."""
+    import jax
+    import jax.numpy as jnp
+    from repro.core import engine as jengine
+
+    key = jax.random.key(GROW_SEED)
+    return {path: np.asarray(jax.random.normal(
+        jengine.leaf_key(key, tuple(jax.tree_util.DictKey(k) for k in path)),
+        (q.shape[-2], GROW_RANK - q.shape[-1]), dtype=jnp.float32))
+        for path, q in tree.items(comp) if q is not None}
+
+
+class _FedController(powersgd.RankController):
+    """The port's controller fed the reference's columns (``cols``, keyed by
+    leaf path, at the global shape a model-sharded factor asks for)."""
+
+    def __init__(self, schedule, cols):
+        super().__init__(schedule)
+        self.cols = cols
+
+    def draw(self, switch, path, shape):
+        cols = self.cols[tuple(path)]
+        assert cols.shape == tuple(shape), (path, cols.shape, shape)
+        return torch.from_numpy(cols.copy())
+
+
 # ---------------------------------------------------------------------------
 # what each port rank runs
 # ---------------------------------------------------------------------------
+
+def _rank_ckpt(mesh, cfg, staleness, params, ef, directory):
+    """(7): the state after the steps through ``canonicalize_mesh`` (the
+    step's call counts read around it), written by rank 0, then restored on
+    every rank as the CLI restores it: ``global_template`` →
+    ``stack_model_template`` → ``restore_train_state`` →
+    ``replicate_mesh``."""
+    comp = compressors.PowerSGDCompressor(rank=2)
+    parts = train.train_state_partition(cfg, mesh, comp, staleness)
+    calls = dict(dist.CALLS), dict(dist.MODEL_CALLS)
+    p_c, ef_c = ts.canonicalize_mesh(mesh, params, ef, parts)
+    moved = (dict(dist.CALLS), dict(dist.MODEL_CALLS)) != calls
+    if mesh.rank == 0:
+        ts.save_train_state(directory, ts.TrainState(params=p_c, ef=ef_c,
+                                                     data_step=STEPS),
+                            model_axis_size=M, mesh_shape={"data": D, "model": M})
+    tdist.barrier()
+    p_t, ef_t = train.global_template(cfg, mesh, comp, staleness)
+    state, _ = ts.restore_train_state(
+        directory, ts.TrainState(params=p_t, ef=ts.stack_model_template(
+            ef_t, parts, M)), model_axis_size=M)
+    p_r, ef_r = ts.replicate_mesh(mesh, state.params, state.ef, parts,
+                                  device="cpu")
+    np_ = lambda t: None if t is None else bridge.to_numpy(t)
+    return {"ckpt_calls_moved": moved,
+            "holds_canonical": (p_c is not None, ef_c is not None),
+            "restored": {
+        "params": np_(p_r), "momentum": np_(ef_r.momentum),
+        "error": np_(ef_r.error), "q": np_(ef_r.comp),
+        "inflight": np_(ef_r.inflight)}}
+
+
+def _rank_growth(mesh, cfg, comp_state, cols):
+    """(8): the local factors grown 2 → GROW_RANK by a controller given the
+    partition and the model coordinate: fed the reference's columns, and
+    drawing its own."""
+    parts = train.train_state_partition(cfg, mesh).comp
+    schedule = f"2@0,{GROW_RANK}@1"
+    out = {}
+    for name, ctl in (("grown_fed", _FedController(schedule, cols)),
+                      ("grown_own", powersgd.RankController(schedule))):
+        grown, changed = ctl.update(comp_state, 1, partition=parts,
+                                    model_coord=mesh.coords["model"])
+        assert changed
+        out[name] = bridge.to_numpy(grown)
+    return out
+
 
 def _rank_steps(mesh, path, inputs):
     cfg = _cfg()
@@ -340,10 +488,16 @@ def _rank_steps(mesh, path, inputs):
         losses.append(m["lm_loss"].item())
         drifts.append({k: v.item() for k, v in m.items() if k.startswith("drift_")})
     np_ = lambda t: None if t is None else bridge.to_numpy(t)
-    return {"losses": losses, "drifts": drifts, "records": _records(stats),
-            "model_calls": dict(dist.MODEL_CALLS), "params": np_(params),
-            "momentum": np_(ef.momentum), "error": np_(ef.error),
-            "q": np_(ef.comp), "inflight": np_(ef.inflight)}
+    out = {"losses": losses, "drifts": drifts, "records": _records(stats),
+           "model_calls": dict(dist.MODEL_CALLS), "params": np_(params),
+           "momentum": np_(ef.momentum), "error": np_(ef.error),
+           "q": np_(ef.comp), "inflight": np_(ef.inflight)}
+    if path in CKPT_PATHS:
+        out.update(_rank_ckpt(mesh, cfg, hyper.staleness, params, ef,
+                              os.path.join(inputs["dir"], f"port_{path}")))
+    if path == "bucketed":
+        out.update(_rank_growth(mesh, cfg, ef.comp, inputs["grow_cols"]))
+    return out
 
 
 def _grads(cfg, params, batch, ctx):
@@ -394,7 +548,7 @@ def _rank_main(rank, rdzv, inputs, results):
 def _start(tmp):
     """Launch the reference's processes and the port's ranks; returns what
     :func:`_finish` collects."""
-    inputs = _reference_inputs()
+    inputs = dict(_reference_inputs(), dir=tmp)
     with open(os.path.join(tmp, "inputs.pkl"), "wb") as f:
         pickle.dump(inputs, f)
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
@@ -448,14 +602,17 @@ def _finish(state):
             assert ref.returncode == 0, said
     finally:
         _stop(state)
-    reference = {"steps": {}, "grads": {}}
+    reference = {"steps": {}, "grads": {}, "restored": {}}
     for part in REFERENCE_PARTS:
         with open(os.path.join(state["tmp"], f"reference_{part}.pkl"), "rb") as f:
             got = pickle.load(f)
         reference["coords"] = got["coords"]
-        for key in ("steps", "grads"):
+        for key in ("steps", "grads", "restored"):
             reference[key].update(got[key])
-    return {"inputs": state["inputs"], "ranks": ranks, "reference": reference}
+        if "grown" in got:
+            reference["grown"] = got["grown"]
+    return {"inputs": state["inputs"], "ranks": ranks, "reference": reference,
+            "dir": state["tmp"]}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -832,6 +989,146 @@ def test_replicas_of_a_model_rank_agree(run):
                 for x, y in zip(tree.leaves(a[name] or {}), tree.leaves(b[name] or {})):
                     if x is not None:
                         np.testing.assert_array_equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# (7) the (2, 2) envelopes, (8) a growth
+# ---------------------------------------------------------------------------
+
+def _envelope_leaves(directory):
+    from repro_torch.checkpoint import decode_leaf, load_envelope
+
+    env = load_envelope(directory, STEPS)
+    np_ = lambda x: None if x is None else np.asarray(x)
+    return env["meta"], {d["path"]: (d["dtype"] if d["kind"] == "array" else None,
+                                     tuple(d.get("shape", ())), np_(decode_leaf(d)))
+                         for d in env["leaves"]}
+
+
+@pytest.mark.parametrize("path", CKPT_PATHS)
+def test_envelope_matches_reference(run, path):
+    """Each package's envelope of its state after the steps: the same leaf
+    paths, dtypes and shapes and grid record; parameters within PARAM_ATOL,
+    the rest of the float state within STATE_ATOL, the integer leaves
+    equal; each model-LOCAL factor stacked with distinct entries."""
+    meta, got = _envelope_leaves(os.path.join(run["dir"], f"port_{path}"))
+    want_meta, want = _envelope_leaves(os.path.join(run["dir"], f"reference_{path}"))
+    assert list(got) == list(want)
+    assert {k: v[:2] for k, v in got.items()} == {k: v[:2] for k, v in want.items()}
+    for key in ("model_axis_size", "mesh_shape", "workers"):
+        assert meta[key] == want_meta[key]
+    assert meta["model_axis_size"] == M
+    local = 0
+    for leaf, (dtype, shape, x) in got.items():
+        y = want[leaf][2]
+        if x is None:
+            continue
+        if dtype.startswith("<f"):
+            atol = PARAM_ATOL if leaf.startswith("['params']") else STATE_ATOL
+            assert _gap(x, y) <= atol, leaf
+        else:
+            np.testing.assert_array_equal(x, y, err_msg=leaf)
+        if leaf in ("['ef'].comp['embed']",
+                    "['ef'].comp['blocks']['slot0']['mixer']['wo']",
+                    "['ef'].comp['blocks']['slot0']['ffn']['w_down']"):
+            local += 1
+            assert shape[0] == M and not np.allclose(x[0], x[1]), leaf
+    assert local == 3
+
+
+@pytest.mark.parametrize("path", CKPT_PATHS)
+def test_restores_agree_across_packages(run, path):
+    """The port's envelope restored by the reference
+    (``restore_train_state`` + ``replicate_mesh``, placed as its step places
+    state) and by each port rank (``stack_model_template`` →
+    ``restore_train_state`` → ``replicate_mesh``): the same arrays at every
+    coordinate, bit for bit, and the port's its pre-save local state."""
+    ref = run["reference"]["restored"][path]
+    for c, out in _by_coord(run).items():
+        got = out[path]["restored"]
+        for name in ("params", "momentum", "error", "q", "inflight"):
+            if ref[name] is None:
+                assert got[name] is None and out[path][name] is None
+                continue
+            for (leaf, x), y, z in zip(tree.items(got[name]),
+                                       tree.leaves(_at(ref[name], c)),
+                                       tree.leaves(out[path][name])):
+                if x is None:
+                    assert y is None and z is None
+                    continue
+                np.testing.assert_array_equal(x, y, err_msg=f"{c} {name} {leaf}")
+                np.testing.assert_array_equal(x, z, err_msg=f"{c} {name} {leaf}")
+
+
+def test_checkpoint_gathers_leave_the_step_counts(run):
+    """``canonicalize_mesh``'s gathers count in neither ``dist.CALLS`` nor
+    ``dist.MODEL_CALLS``: a save between steps leaves the counts that
+    test_model_calls_per_step holds as they are."""
+    for out in run["ranks"].values():
+        for path in CKPT_PATHS:
+            assert out[path]["ckpt_calls_moved"] is False
+
+
+def test_only_the_writer_holds_the_canonical_tree(run):
+    """``canonicalize_mesh`` gathers to rank 0 (coordinate (0, 0), the
+    writer) and gives the other ranks ``(None, None)``: no other process
+    builds the canonical tree."""
+    for c, out in _by_coord(run).items():
+        for path in CKPT_PATHS:
+            want = c == (0, 0)
+            assert out[path]["holds_canonical"] == (want, want), (c, path)
+
+
+def test_growth_matches_reference(run):
+    """(8): the local factors after 3 bucketed steps grown 2 → GROW_RANK by
+    a controller fed the reference's columns at global shape, against the
+    reference's ``transition_state`` of its global sharded factors: the new
+    columns bit for bit, the kept ones within STATE_ATOL (the factors'
+    tolerance)."""
+    ref = run["reference"]["grown"]
+    for c, out in _by_coord(run).items():
+        for (leaf, x), y in zip(tree.items(out["bucketed"]["grown_fed"]),
+                                tree.leaves(_at(ref, c))):
+            if x is None:
+                continue
+            assert x.shape == y.shape, (c, leaf)
+            np.testing.assert_array_equal(x[..., 2:], y[..., 2:], err_msg=str(leaf))
+            assert _gap(x[..., :2], y[..., :2]) <= STATE_ATOL, (c, leaf)
+
+
+def test_gathered_growth_is_the_global_transition(run):
+    """(8), port only: the model ranks' own growths of a data row, joined
+    (``assemble_mesh``), equal ``transition_factor`` of the joined factors
+    with the controller's columns at global shape, bit for bit; a LOCAL
+    factor's stack entries each grow by the same columns."""
+    cfg = _cfg()
+    parts = train.train_state_partition(cfg, _AxisNames())
+    ctl = powersgd.RankController(f"2@0,{GROW_RANK}@1")
+    draw = lambda path, shape: ctl.draw(0, path, shape)
+    by = _by_coord(run)
+    shape = {"data": 1, "model": M}
+    for d in range(D):
+        def joined(key):
+            pieces = {}
+            for m in range(M):
+                out = by[(d, m)]["bucketed"]
+                params = bridge.to_torch(out["params"])
+                pieces[(0, m)] = (params, train.EFState(
+                    error=bridge.to_torch(out["error"]),
+                    momentum=bridge.to_torch(out["momentum"]),
+                    comp=bridge.to_torch(out[key]), step=STEPS))
+            return ts.assemble_mesh(pieces, parts, shape)[1].comp
+        before, after = joined("q"), joined("grown_own")
+        for (path, q), part, x in zip(tree.items(before), tree.leaves(parts.comp),
+                                      tree.leaves(after)):
+            if q is None:
+                continue
+            if part.model == engine.MODEL_LOCAL:
+                want = torch.stack([powersgd.transition_factor(
+                    p, GROW_RANK, draw, path) for p in q])
+            else:
+                want = powersgd.transition_factor(q, GROW_RANK, draw, path)
+            assert torch.equal(x, want), (d, path)
 
 
 # ---------------------------------------------------------------------------

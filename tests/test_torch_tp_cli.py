@@ -7,21 +7,28 @@ processes, against the JAX package's CLI on 4 host devices.
   from the same state, the one the port's CLI draws (seed 0, heads and
   vocabulary padded to the model size): the reference's CLI runs as
   ``python tests/test_torch_tp_cli.py --reference-cli <state> <flags>``,
-  its ``init_state`` handing out that state.  (Its ``--resume`` of a
-  (2, 2) envelope fails on jax 0.9.0 in the donated step, as a fresh
-  array layout does.)  The final ``lm_loss`` agrees within rtol 1e-5 (the
-  loss tolerance of ``tests/test_torch_dist.py``).
+  its ``init_state`` handing out that state.  The final ``lm_loss`` after
+  STEPS steps agrees within rtol 1e-5 (the loss tolerance of
+  ``tests/test_torch_dist.py``).
+* Checkpoints on the grid: the reference CLI saves its (2, 2) envelope at
+  step 3 (``--ckpt-every 3``), and the port's CLI resumes it
+  (``--resume``) to STEPS, within rtol 1e-5 of the reference's own final
+  loss.  (The JAX CLI's own ``--resume`` of a (2, 2) envelope fails on
+  jax 0.9.0 in the donated step, as a fresh array layout does.)
 * ``--ckpt-dir``, ``--resume`` and ``--rank-schedule`` on a model axis of
-  2 raise ``NotImplementedError`` naming item 14 before any step, in
-  ``check_model_axis_options`` and through the CLI under ``torchrun``.
+  2: the port's CLI straight to STEPS under ``--rank-schedule
+  1@0,2@2,4@4`` (growths at steps 2 and 4, the second after the save),
+  saving at 3, against the step-3 envelope resumed to STEPS: the
+  same ``hex=``, the same controller history and the same final envelope,
+  byte for byte.
 """
 
 import os
 import pickle
 import re
+import shutil
 import subprocess
 import sys
-import types
 
 import numpy as np
 import pytest
@@ -30,11 +37,12 @@ import torch
 from repro_torch import bridge
 from repro_torch.configs import llama3_8b
 from repro_torch.core import compressors
-from repro_torch.launch import train
 from repro_torch.models import model
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-STEPS = 3
+STEPS = 5
+SAVE_AT = 3
+SCHEDULE = ["--rank-schedule", "1@0,2@2,4@4"]
 SMALL = ["--batch", "4", "--seq", "32"]
 LOSS_RTOL = 1e-5
 
@@ -109,16 +117,25 @@ def _torchrun(cwd, *argv):
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
-# the guard runs before any step: one torchrun shows it in the CLI, and
-# test_model_axis_options_raise_before_any_step holds each flag
-GUARDED = ["--rank-schedule", "1@0,2@2", "--ckpt-dir", "ck"]
+def _envelope(directory, step):
+    return f"{directory}/ckpt_{step:010d}.msgpack"
+
+
+def _resume_from(src, dst):
+    """A directory holding ``src``'s step-SAVE_AT envelope alone, for a
+    ``--resume`` that continues from it."""
+    dst.mkdir()
+    shutil.copy(_envelope(src, SAVE_AT), _envelope(dst, SAVE_AT))
+    return dst
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The reference CLI (from the port's initial state), the port's
-    CLI on 4 processes, and the port's CLI under guarded options, all at
-    once.  {name: (returncode, stdout, stderr)}."""
+    """The reference CLI (from the port's initial state, saving at SAVE_AT),
+    the port's CLI on 4 processes, and the port's CLI under a rank schedule
+    saving at SAVE_AT (``straight``); once their envelopes are written, the
+    port's CLI resumes each (``from_reference``, ``resumed``).
+    {name: (returncode, stdout, stderr)} and the directories."""
     tmp = tmp_path_factory.mktemp("tp_cli")
     with open(tmp / "state.pkl", "wb") as f:
         pickle.dump(_port_initial_state(), f)
@@ -126,23 +143,37 @@ def runs(tmp_path_factory):
     env.update(XLA_FLAGS="--xla_force_host_platform_device_count=4",
                JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
                PYTHONPATH=os.path.join(ROOT, "src"))
+    every = ["--ckpt-every", str(SAVE_AT)]
     procs = {"reference": subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--reference-cli",
-         str(tmp / "state.pkl"), "--steps", str(STEPS), *SMALL], cwd=ROOT,
+         str(tmp / "state.pkl"), "--steps", str(STEPS), *SMALL,
+         "--ckpt-dir", str(tmp / "reference"), *every], cwd=ROOT,
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)}
     procs["port"] = _torchrun(tmp, "--steps", str(STEPS))
-    procs["guarded"] = _torchrun(tmp, "--steps", "1", *GUARDED)
+    procs["straight"] = _torchrun(tmp, "--steps", str(STEPS), *SCHEDULE,
+                                  "--ckpt-dir", "straight", *every)
+    # each resume starts once the envelope it continues is written
+    then = {"straight": ("resumed", SCHEDULE),
+            "reference": ("from_reference", [])}
     out = {}
     try:
-        for name, proc in procs.items():
-            stdout, stderr = proc.communicate(timeout=200)
-            out[name] = (proc.returncode, stdout, stderr)
+        for name in ("straight", "reference", "port", "resumed",
+                     "from_reference"):
+            stdout, stderr = procs[name].communicate(timeout=200)
+            out[name] = (procs[name].returncode, stdout, stderr)
+            if name in then and procs[name].returncode == 0:
+                nxt, flags = then[name]
+                _resume_from(tmp / name, tmp / nxt)
+                procs[nxt] = _torchrun(tmp, "--steps", str(STEPS), *flags,
+                                       "--ckpt-dir", nxt, "--resume")
+            elif name in then:
+                return {"dir": tmp, **out}
     finally:
         for proc in procs.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.communicate()
-    return out
+    return {"dir": tmp, **out}
 
 
 def _final_loss(stdout):
@@ -170,19 +201,66 @@ def test_final_loss_matches_reference(runs):
 
 
 def test_unported_options_raise_under_torchrun(runs):
-    rc, out, err = runs["guarded"]
-    assert rc != 0
-    assert "NotImplementedError" in err and "item 14" in err, err[-2000:]
-    assert "step    0" not in out
+    """Once the item-14 guard; now the three options on a (2, 2) grid: the
+    run straight to STEPS under a rank schedule (saving at SAVE_AT) and
+    the step-SAVE_AT envelope resumed to STEPS give the same ``hex=``, the
+    same controller history and the same final envelope, byte for byte."""
+    from repro_torch.checkpoint import checkpoint_meta
+
+    for name in ("straight", "resumed"):
+        rc, out, err = runs[name]
+        assert rc == 0, out + err
+    straight, resumed = runs["straight"][1], runs["resumed"][1]
+    assert f"resumed from step {SAVE_AT}" in resumed
+    assert "step    0" not in resumed
+    assert (re.search(r"hex=(\S+)", straight).group(1)
+            == re.search(r"hex=(\S+)", resumed).group(1))
+    metas = [checkpoint_meta(str(runs["dir"] / n), STEPS)
+             for n in ("straight", "resumed")]
+    assert metas[0]["controller"] == metas[1]["controller"]
+    assert metas[0]["controller"]["history"] == [[0, 1], [2, 2], [4, 4]]
+    with open(_envelope(runs["dir"] / "straight", STEPS), "rb") as f:
+        want = f.read()
+    with open(_envelope(runs["dir"] / "resumed", STEPS), "rb") as f:
+        assert f.read() == want
 
 
 @pytest.mark.parametrize("flag", ["ckpt_dir", "resume", "rank_schedule"])
-def test_model_axis_options_raise_before_any_step(flag):
-    args = types.SimpleNamespace(ckpt_dir=None, resume=False, rank_schedule=None)
-    setattr(args, flag, True if flag == "resume" else "x")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        train.check_model_axis_options(args, 2)
-    train.check_model_axis_options(args, 1)       # model size 1: unchanged
+def test_model_axis_options_raise_before_any_step(runs, flag):
+    """Once the item-14 guard per flag; now each flag's work on a model axis
+    of 2: ``--ckpt-dir`` writes envelopes of the grid (degree 2, its
+    ``mesh_shape``, each model-LOCAL factor stacked per model rank),
+    ``--resume`` continues the port's and the reference's, and
+    ``--rank-schedule`` switches at its milestones."""
+    from repro_torch.checkpoint import checkpoint_meta, load_envelope
+
+    if flag == "ckpt_dir":
+        for step in (SAVE_AT, STEPS):
+            meta = checkpoint_meta(str(runs["dir"] / "straight"), step)
+            assert meta["model_axis_size"] == 2
+            assert meta["mesh_shape"] == {"data": 2, "model": 2}
+        leaves = {d["path"]: d for d in load_envelope(
+            str(runs["dir"] / "straight"), SAVE_AT)["leaves"]}
+        assert leaves["['ef'].comp['embed']"]["shape"][0] == 2
+        assert leaves["['params']['embed']"]["shape"] == [1024, 256]
+    elif flag == "resume":
+        for name in ("resumed", "from_reference"):
+            rc, out, err = runs[name]
+            assert rc == 0 and f"resumed from step {SAVE_AT}" in out, out + err
+    else:
+        out = runs["straight"][1]
+        assert "step    2 rank -> 2" in out and "step    4 rank -> 4" in out
+
+
+def test_port_resumes_reference_envelope(runs):
+    """The reference CLI's (2, 2) envelope of step SAVE_AT, resumed by the
+    port's CLI to STEPS: the reference's own final loss within
+    LOSS_RTOL."""
+    rc, out, err = runs["from_reference"]
+    assert rc == 0, out + err
+    assert "mesh (data, model) = (2, 2)" in out
+    np.testing.assert_allclose(_final_loss(out), _final_loss(runs["reference"][1]),
+                               rtol=LOSS_RTOL)
 
 
 if __name__ == "__main__":
