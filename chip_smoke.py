@@ -258,6 +258,19 @@ Phases, in order; any failure raises and the script exits non-zero:
               restored on the card, every coordinate bit for bit, B1b/B2b
               on the restored slabs equal to the pre-save products and
               within phase 2's tolerance of their plain versions.
+22. archs   — the other architectures' training path: (a) Qwen3-30B-A3B
+              at its published widths with 2 of 48 layers (MoE, 128
+              experts top-8, qk-norm; 8 bucket slabs, the expert slabs
+              among them), ARCH_STEPS EF-PowerSGD steps at W = 2 × 1024
+              tokens, launches and peak; one step from the same state
+              again and two under ``remat=True``, the first of each bit
+              for bit with the run's first step;
+              B1b/B2b at its bucket slabs as phase 2's rows; (b)
+              Mamba2-1.3B at its published widths with 2 of 48 layers,
+              ARCH_STEPS steps; (c) every registered architecture's
+              reduced configuration (LLaVA-NeXT with patches) and
+              reduced Llama-3-8B under a sliding window, card against
+              CPU under phase 3's rule, B1b/B2b once a bucket a step.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after; the summary line gives each kernel's launches on every
@@ -1042,6 +1055,14 @@ KERNEL_CLASSES = (("lowrank", ("project_kernel",)),
 LLAMA_CLASSES = ("lowrank", "nibble", "topk", "gemm", "copy")
 
 
+def kernel_class(name: str) -> str:
+    """The ``KERNEL_CLASSES`` class of a device kernel's name, else
+    "other"."""
+    name = name.lower()
+    return next((k for k, keys in KERNEL_CLASSES if any(key in name for key in keys)),
+                "other")
+
+
 def profile_phase(torch, path, run, step_ms):
     """One step (``run()``) under torch.profiler: where the device time
     goes."""
@@ -1057,10 +1078,7 @@ def profile_phase(torch, path, run, step_ms):
     classes = {k: 0.0 for k, _ in KERNEL_CLASSES}
     classes["other"] = 0.0
     for e in rows:
-        name = e.key.lower()
-        cls = next((k for k, keys in KERNEL_CLASSES
-                    if any(key in name for key in keys)), "other")
-        classes[cls] += dev_ms(e)
+        classes[kernel_class(e.key)] += dev_ms(e)
     busy = sum(classes.values())
     top = sorted(rows, key=dev_ms, reverse=True)[:10]
     print(json.dumps({
@@ -4993,6 +5011,260 @@ def tp_ckpt_phase(torch, kernel_mods, cfg, small, mods, smi):
     return launches, row
 
 
+# ---------------------------------------------------------------------------
+# The remaining architectures' training path (phase 22).  (a) Qwen3-30B-A3B
+# at its published widths (d_model 2048, 32/4 heads with qk-norm, 128
+# experts top-8 of d_ff 768, vocabulary 151,936) with 2 of its 48 layers:
+# ARCH_STEPS EF-PowerSGD steps of ``make_sim_train_step`` at W = WORKERS, one
+# sequence of SEQ tokens a worker (capacity 80 a worker), then one step from
+# the same initial state again (bit for bit: a checksum of every parameter,
+# error buffer and momentum leaf) and two under ``remat=True`` (the first bit
+# for bit, its peak beside the plain step's; the first remat step of a
+# process imports torch._dynamo, seconds); then B1b/B2b at its eight bucket slabs
+# (the expert slabs (2048, 768) × 512 and (768, 2048) × 256 a worker among
+# them), as phase 2's rows.  (b) Mamba2-1.3B at its published widths with 2
+# of its 48 layers, ARCH_STEPS steps, then one step under torch.profiler
+# with the SSD loop and the convolution traced, and B1b/B2b at its six
+# bucket slabs (its (50280, 2048) embedding and head among them) as in
+# (a).  (c) Every registered architecture's
+# reduced configuration, ARCH_STEPS steps at W = 2 of 2 sequences of 128
+# tokens (LLaVA-NeXT with ARCH_PATCHES patch embeddings as each sequence's
+# prefix), card against CPU under phase 3's rule, B1b and B2b launched once
+# a bucket a step on the card; and reduced Llama-3-8B under a sliding
+# window of ARCH_WINDOW.  Jamba runs only reduced: one period of 8 layers at
+# its published widths holds about 13.3 billion parameters (53 GB in
+# float32) before any training state.
+ARCH_FULL = ("qwen3_moe_30b_a3b", "mamba2_1p3b")
+ARCH_LAYERS = 2
+ARCH_STEPS = 3
+ARCH_WINDOW = 32
+ARCH_PATCHES = 8
+
+
+def state_checksum(torch, tree, params, ef):
+    return [tree_checksum(torch, tree, t) for t in (params, ef.error, ef.momentum)]
+
+
+def span_profile(torch, path, run, step_ms, module, spans):
+    """One step (``run()``) under torch.profiler, each function named in
+    ``spans`` of ``module`` wrapped in a ``record_function`` of its name for
+    the step: device busy ms and idle share against ``step_ms`` (an
+    unprofiled step), the device kernels launched, their ms by class
+    (``KERNEL_CLASSES``), the ten longest, each span's calls, host ms and
+    device ms (its forward calls: the backward's kernels run outside the
+    span), the host ops called most and the CUDA runtime calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    saved = {name: getattr(module, name) for name in spans}
+
+    def wrap(name, fn):
+        def traced(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return traced
+
+    for name, fn in saved.items():
+        setattr(module, name, wrap(name, fn))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+    events = prof.key_averages()
+    dev_ms = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0)) / 1e3
+    total_dev_ms = lambda e: getattr(e, "device_time_total",
+                                     getattr(e, "cuda_time_total", 0)) / 1e3
+    # a span's range also shows on the device side: not a kernel
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.key not in saved]
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    busy = sum(dev_ms(e) for e in kernels)
+    classes = {k: 0.0 for k, _ in KERNEL_CLASSES}
+    classes["other"] = 0.0
+    for e in kernels:
+        classes[kernel_class(e.key)] += dev_ms(e)
+    line = {
+        "check": "profile", "path": path, "step_ms": step_ms,
+        "profiled_step_ms": wall, "device_busy_ms": busy,
+        "idle_share": max(0.0, 1.0 - busy / step_ms),
+        "device_kernels": sum(e.count for e in kernels),
+        "device_ms_by_class": classes,
+        "top_kernels": [{"name": e.key[:90], "ms": dev_ms(e), "calls": e.count}
+                        for e in sorted(kernels, key=dev_ms, reverse=True)[:10]],
+        "spans": {e.key: {"calls": e.count, "host_ms": e.cpu_time_total / 1e3,
+                          "device_ms": total_dev_ms(e)}
+                  for e in host if e.key in saved},
+        "host_ops_by_calls": [
+            {"name": e.key, "calls": e.count, "host_ms": e.cpu_time_total / 1e3}
+            for e in sorted((e for e in host if e.key.startswith("aten::")),
+                            key=lambda e: e.count, reverse=True)[:8]],
+        "cuda_runtime": [
+            {"name": e.key, "calls": e.count, "host_ms": e.self_cpu_time_total / 1e3}
+            for e in sorted((e for e in host if e.key.startswith("cuda")),
+                            key=lambda e: e.self_cpu_time_total, reverse=True)[:5]]}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def arch_full_run(torch, mods, kernel_mods, cfg, steps, remat=False, label="",
+                  profile=None):
+    """``steps`` steps of ``cfg`` on the card at W = WORKERS from the state
+    drawn from seed 0, every launch count set to 0 just before and read
+    just after; with ``profile`` (a module and the names of its functions
+    to trace), one more step under :func:`span_profile`.  Returns the
+    launches, each step's (lm_loss, moe_aux, ms), the peak GiB, the
+    parameter count and the state's checksum after the first step."""
+    train, tree, SimMesh, MarkovLM = mods
+    sim = SimMesh(WORKERS)
+    step, init = train.make_sim_train_step(cfg, sim, train.TrainHyper(remat=remat))
+    batches = llama_batches(torch, MarkovLM, cfg, sim, steps)
+    params, ef = init(torch.Generator("cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in tree.leaves(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches(kernel_mods)
+    rows, first = [], None
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        params, ef, metrics = step(params, ef, batch)
+        loss, aux = metrics["lm_loss"].item(), metrics["moe_aux"].item()
+        torch.cuda.synchronize()
+        rows.append((loss, aux, (time.perf_counter() - t0) * 1e3))
+        print(f"{label} step {i} lm_loss={loss:.6f} moe_aux={aux:.6f} "
+              f"step_ms={rows[-1][2]:.1f}", flush=True)
+        if i == 0:
+            first = state_checksum(torch, tree, params, ef)
+    launches = read_all_launches(kernel_mods)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(math.isfinite(v) for r in rows for v in r[:2]):
+        raise AssertionError(f"{label}: non-finite losses {rows}")
+    for name, t in (("params", params), ("error", ef.error),
+                    ("momentum", ef.momentum), ("compressor state", ef.comp)):
+        for p, x in tree.items(t):
+            if x is not None and not torch.isfinite(x).all():
+                raise AssertionError(f"{label}: non-finite {name} at {p}")
+    if profile is not None:
+        span_profile(torch, label, lambda: step(params, ef, batches[-1]),
+                     statistics.median(r[2] for r in rows[1:]), *profile)
+    del params, ef, batches
+    torch.cuda.empty_cache()
+    return launches, rows, peak, n_params, first
+
+
+def arch_full_phase(torch, mods, kernel_mods, lowrank, ref, bench, get_config,
+                    moe, mamba2, peaks, smi):
+    """Phase 22 (a) and (b), each main path's bucket slabs held and timed
+    (:func:`slab_set_phase`); the Mamba-2 path also profiled a step, its
+    SSD loop and convolution traced.  Returns the launches of each main
+    path and, under ``"slab_rows"``, each path's slab rows."""
+    out, slab_rows_by_arch = {}, {}
+    for arch in ARCH_FULL:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), num_layers=ARCH_LAYERS)
+        buckets = bench.model_buckets(cfg)
+        traced = ((mamba2, ("_ssd_scan", "_causal_depthwise_conv"))
+                  if cfg.ssm_state else None)
+        launches, rows, peak, n_params, first = arch_full_run(
+            torch, mods, kernel_mods, cfg, ARCH_STEPS, label=arch, profile=traced)
+        want = {"lowrank_project": ARCH_STEPS * len(buckets),
+                "lowrank_backproject": ARCH_STEPS * len(buckets),
+                "nibble_pack": 0, "nibble_unpack": 0, "ef_apply": 0}
+        if launches != want:
+            raise AssertionError(f"{arch}: launches {launches}, want {want} "
+                                 f"({ARCH_STEPS} steps x {len(buckets)} buckets)")
+        line = {"check": f"arch {arch}", "layers": f"{ARCH_LAYERS} of "
+                f"{get_config(arch).num_layers}", "params": n_params,
+                "param_count": cfg.param_count(), "workers": WORKERS,
+                "tokens_per_worker": SEQ,
+                "buckets": [[b.count, b.n, b.m] for b in buckets],
+                "launches": launches, "lm_loss": [r[0] for r in rows],
+                "moe_aux": [r[1] for r in rows], "step_ms": [r[2] for r in rows],
+                "median_step_ms": statistics.median(r[2] for r in rows),
+                "peak_gib": peak, "card": smi}
+        if arch == "qwen3_moe_30b_a3b":
+            line["capacity_per_worker"] = moe.capacity(cfg, SEQ)
+            again = arch_full_run(torch, mods, kernel_mods, cfg, 1,
+                                  label=f"{arch} again")
+            # two steps: the first one in the process pays
+            # torch.utils.checkpoint's one-time import of torch._dynamo
+            remat = arch_full_run(torch, mods, kernel_mods, cfg, 2, remat=True,
+                                  label=f"{arch} remat")
+            line.update({"repeat_bit_equal": again[4] == first,
+                         "remat_bit_equal": remat[4] == first,
+                         "plain_step_peak_gib": again[2],
+                         "remat_step_peak_gib": remat[2],
+                         "remat_step_ms": [r[2] for r in remat[1]],
+                         "plain_step_ms": again[1][0][2]})
+            if not (line["repeat_bit_equal"] and line["remat_bit_equal"]):
+                raise AssertionError(f"{arch}: a step from the same state differs "
+                                     f"(repeat {line['repeat_bit_equal']}, remat "
+                                     f"{line['remat_bit_equal']})")
+            if peak >= 80:
+                raise AssertionError(f"{arch}: peak {peak:.2f} GiB")
+        line["seconds"] = time.perf_counter() - t0
+        print(json.dumps(line), flush=True)
+        out[arch] = launches
+        slabs = [(WORKERS * b.count, b.n, b.m) for b in buckets]
+        t_slab = time.perf_counter()
+        slab_rows_by_arch[arch] = slab_set_phase(
+            torch, lowrank, ref, f"{arch} slabs", slabs, peaks, seed=22)
+        print(f"{arch} slabs: {time.perf_counter() - t_slab:.1f} s", flush=True)
+    out["slab_rows"] = slab_rows_by_arch
+    return out
+
+
+def arch_small_phase(torch, mods, kernel_mods, bench, get_config, arch_ids,
+                     llama_small):
+    """Phase 22 (c): each reduced configuration (and reduced Llama-3-8B under
+    a sliding window), card against CPU.  Returns the card's launches."""
+    train, tree, SimMesh, MarkovLM = mods
+    runs = [(a, get_config(a, reduced=True), 0) for a in arch_ids]
+    runs.append(("llama3_8b window", llama_small, ARCH_WINDOW))
+    out = {}
+    for name, cfg, window in runs:
+        sim = SimMesh(WORKERS)
+        hyper = train.TrainHyper(q_chunk=64, warmup_steps=2, window=window)
+        n_buckets = len(bench.model_buckets(cfg))
+        _, init = train.make_sim_train_step(cfg, sim, hyper, device="cpu")
+        res = {}
+        for dev in ("cpu", "cuda"):
+            step, _ = train.make_sim_train_step(cfg, sim, hyper, device=dev)
+            params, ef = init(torch.Generator().manual_seed(0))
+            params, ef = tree.map(lambda x: x.to(dev), params), ef.to(dev)
+            reset_all_launches(kernel_mods)
+            data = MarkovLM(vocab=cfg.vocab_size, seed=0, order=1)
+            gen = torch.Generator().manual_seed(1)
+            losses = []
+            for i in range(ARCH_STEPS):
+                toks = torch.tensor(data.sample(2 * WORKERS, 128, step=i))
+                batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+                if cfg.frontend == "vision":
+                    batch["patches"] = torch.randn(
+                        (2 * WORKERS, ARCH_PATCHES, cfg.frontend_dim), generator=gen)
+                batch = sim.shard({k: v.to(dev) for k, v in batch.items()})
+                params, ef, metrics = step(params, ef, batch)
+                losses.append(metrics["lm_loss"].item())
+            res[dev] = (losses, tree.map(lambda x: x.cpu(), params))
+            if dev == "cuda":
+                out[name] = read_all_launches(kernel_mods)
+        want = ARCH_STEPS * n_buckets
+        if (out[name]["lowrank_project"], out[name]["lowrank_backproject"]) != (
+                want, want):
+            raise AssertionError(f"{name}: card launches {out[name]}, want {want} "
+                                 f"of each low-rank kernel")
+        (l_cpu, p_cpu), (l_gpu, p_gpu) = res["cpu"], res["cuda"]
+        check_powersgd_parity(f"arch {name}", l_cpu, l_gpu, tree.leaves(p_cpu),
+                              tree.leaves(p_gpu))
+    return out
+
+
 def int4_chunk(torch, cfg, model, matrixize, tree, workers, scheme="top_k"):
     """(chunk, parts, (workers, codes)): the int4 chunk ``scheme``'s gather
     packs each step on ``cfg``, the payload parts it plans from (meta
@@ -5080,7 +5352,8 @@ def main() -> None:
     from repro_torch.kernels import _build, lowrank, ops, quant, ref
     from repro_torch.kernels import ef_apply as ef_kernel
     from repro_torch.launch import train
-    from repro_torch.models import attention, lstm, model, resnet
+    from repro_torch.configs.base import ARCH_IDS
+    from repro_torch.models import attention, lstm, mamba2, model, moe, resnet
     from repro_torch.optim import schedules
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5427,6 +5700,20 @@ def main() -> None:
         (model, compressors, powersgd, train, tree, lowrank, ref), smi)
     print(f"tp ckpt: {time.perf_counter() - t_tp_ckpt:.1f} s")
 
+    # -- 22. the remaining architectures' training path ----------------------
+    t_arch = time.perf_counter()
+    arch_out = arch_full_phase(torch, tmods, kernel_mods, lowrank, ref, bench,
+                               get_config, moe, mamba2, peaks, smi)
+    arch_slab_rows = arch_out.pop("slab_rows")
+    arch_launches = {f"{k} full width": v for k, v in arch_out.items()}
+    t_small = time.perf_counter()
+    arch_launches.update({f"{k} reduced": v for k, v in arch_small_phase(
+        torch, tmods, kernel_mods, bench, get_config, ARCH_IDS,
+        llama3_8b.reduced_config()).items()})
+    print(f"archs: {time.perf_counter() - t_arch:.1f} s ((c) "
+          f"{time.perf_counter() - t_small:.1f} s)")
+    arch_sum = lambda kernel: sum(v[kernel] for v in arch_launches.values())
+
     # launches of each kernel on every path this run drove
     paths = {"llama powersgd": psgd, "llama top_k_int4": topk,
              **{f"dist {k}": v for k, v in dist_launches.items()},
@@ -5443,7 +5730,8 @@ def main() -> None:
              **{f"staleness {k}": v for k, v in stale_launches.items()},
              **{f"sync {k}": v for k, v in sync_launches.items()},
              **{f"profiles {k}": v for k, v in profile_launches.items()},
-             "tp ckpt": tp_ckpt_launches}
+             "tp ckpt": tp_ckpt_launches,
+             **{f"archs {k}": v for k, v in arch_launches.items()}}
     by_path = lambda kernel: {p: v[kernel] for p, v in paths.items() if v[kernel]}
 
     summary = []
@@ -5461,6 +5749,18 @@ def main() -> None:
             "launches_by_path": by_path(f"lowrank_{kind}"),
             "tp_launches": tp_launches[f"lowrank_{kind}"],
             "tp_ckpt_launches": tp_ckpt_launches[f"lowrank_{kind}"],
+            "archs_launches": arch_sum(f"lowrank_{kind}"),
+            # phase 22 (a), (b): each full-width path's bucket slabs, W = 2
+            # folded, graph replay
+            **{f"archs_slab_{key}": {
+                arch: (max if key == "max_abs_err" else sum)(
+                    r[col] for r in rows if r["kernel"] == f"lowrank_{kind}")
+                for arch, rows in arch_slab_rows.items()}
+               for key, col in (("ms", "kernel_graph_ms"),
+                                ("plain_ms", "plain_graph_ms"),
+                                ("library_ms", "library_graph_ms"),
+                                ("bound_ms", "bound_ms"),
+                                ("max_abs_err", "max_abs_err"))},
             # phase 20 (b): one model rank's local slabs at M = 2, the mean
             # over the ranks
             "tp_slab_ms": sum(r["kernel_graph_ms"] for r in tp_rows
@@ -5481,7 +5781,8 @@ def main() -> None:
             "cold_shape": row["cold"]["shape"], "cold_ms": row["cold"]["kernel_ms"],
             "cold_bound_ms": row["cold"]["bound_ms"],
             "launches_by_path": by_path(name), "tp_launches": tp_launches[name],
-            "tp_ckpt_launches": tp_ckpt_launches[name]})
+            "tp_ckpt_launches": tp_ckpt_launches[name],
+            "archs_launches": arch_sum(name)})
     summary.append({
         "name": "ef_apply", "route": "cuda",
         "source": "src/repro_torch/csrc/ef_apply.cu",
@@ -5494,7 +5795,8 @@ def main() -> None:
         "launches_by_path": {
             "its entry point (no training path calls it)": ef_launches},
         "tp_launches": tp_launches["ef_apply"],
-        "tp_ckpt_launches": tp_ckpt_launches["ef_apply"]})
+        "tp_ckpt_launches": tp_ckpt_launches["ef_apply"],
+        "archs_launches": arch_sum("ef_apply")})
     print(f"kernel times are per training step: lowrank sums over the "
           f"{len(buckets)} bucket slabs (rank {RANK}, {WORKERS} workers), "
           f"nibble kernels at the Top-K int4 chunk {chunk_shape}; ef_apply "

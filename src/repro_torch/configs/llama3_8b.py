@@ -15,6 +15,7 @@ def config() -> ModelConfig:
         d_ff=14336,
         vocab_size=128256,
         rope_theta=500000.0,
+        decode_window=16384,   # sliding-window variant for long_500k decode
         slots=(LayerSlot("attn", "dense"),),
         source="arXiv:2407.21783",
     )
@@ -32,6 +33,7 @@ def reduced_config() -> ModelConfig:
         d_ff=512,
         vocab_size=1024,
         rope_theta=500000.0,
+        decode_window=64,
         slots=(LayerSlot("attn", "dense"),),
         source="arXiv:2407.21783",
     )

@@ -48,6 +48,18 @@ class MatrixSpec:
 NONE = MatrixSpec(kind="none")
 
 
+def default_spec(leaf, batch_dims: int = 0) -> MatrixSpec:
+    """The spec model inits use by default, from ``leaf.shape`` alone: fewer
+    than 2 trailing dims ⇒ uncompressed, 4 ⇒ a convolution, else a
+    matrix."""
+    trailing = len(leaf.shape) - batch_dims
+    if trailing < 2:
+        return NONE
+    if trailing == 4:
+        return MatrixSpec(kind="conv", batch_dims=batch_dims)
+    return MatrixSpec(kind="matrix", batch_dims=batch_dims)
+
+
 def matrix_shape(shape: Tuple[int, ...], spec: MatrixSpec
                  ) -> Optional[Tuple[Tuple[int, ...], int, int]]:
     """``(batch_shape, n, m)``, or None for uncompressed leaves."""

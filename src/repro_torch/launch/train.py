@@ -99,6 +99,11 @@ class TrainHyper:
     warmup_steps: int = 200
     rank: int = 2
     q_chunk: int = 512
+    window: int = 0                 # sliding-window attention (0 = full)
+    remat: bool = False             # recompute each period's forward in the
+    #   backward (the reference defaults to True; the port keeps every
+    #   existing path without recomputation, ROADMAP C6: the gradients are
+    #   the same bits either way)
     orthogonalizer: str = "gram_schmidt"
     bucketing: str = "auto"         # "auto"/"on" = bucketed engine, "off" = per-leaf
     wire_dtype: str = "auto"
@@ -170,37 +175,46 @@ def grad_with_aux(loss_fn: Callable) -> Callable:
     """The twin of ``jax.grad(loss_fn, has_aux=True)``: for
     ``loss_fn(params, *args, **kw)`` → ``(loss, aux)``, a function of the
     same arguments returning ``(grads, aux)``, ``grads`` a tree like
-    ``params`` of the loss's gradient with respect to every leaf and
+    ``params`` of the loss's gradient with respect to every leaf (zeros
+    where the loss does not use it) and
     ``aux`` with its tensors detached."""
     def grad(params, *args, **kw):
         live = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
         loss, aux = loss_fn(tree.unflatten(params, live), *args, **kw)
-        grads = torch.autograd.grad(loss, live)
+        # a leaf the loss does not use (a vision frontend's projection on a
+        # batch without patches) gets a zero gradient, as under jax.grad
+        grads = torch.autograd.grad(loss, live, allow_unused=True,
+                                    materialize_grads=True)
         return (tree.unflatten(params, list(grads)),
                 tree.map_nest(lambda x: x.detach(), aux))
     return grad
 
 
 def local_grads(cfg: ModelConfig, params, shard, *, q_chunk: int, device,
-                ctx: MeshCtx = SINGLE):
-    """The gradient of one worker's loss on its batch ``shard`` (``(b, S)``
-    leaves): a list of gradients in ``tree.leaves(params)`` order, and the
-    worker's ``lm_loss``.  Under a model axis (``ctx``) ``params`` are the
-    rank's local shards and so are the gradients."""
+                ctx: MeshCtx = SINGLE, window: int = 0, remat: bool = False):
+    """The gradient of one worker's total loss (``lm_loss`` plus the
+    weighted MoE auxiliary loss, :func:`repro_torch.models.model.loss_fn`)
+    on its batch ``shard`` (``(b, S)`` leaves): a list of gradients in
+    ``tree.leaves(params)`` order, and the worker's metrics, the dict of
+    its ``lm_loss`` and ``moe_aux``.  Under a
+    model axis (``ctx``) ``params`` are the rank's local shards and so are
+    the gradients."""
     shard = {k: v.to(device) for k, v in shard.items()}
-    grads, metrics = grad_with_aux(model.loss_fn)(params, shard, cfg, ctx,
-                                                  q_chunk=q_chunk)
-    return tree.leaves(grads), metrics["lm_loss"]
+    grads, metrics = grad_with_aux(model.loss_fn)(
+        params, shard, cfg, ctx, window=window, q_chunk=q_chunk, remat=remat)
+    return tree.leaves(grads), metrics
 
 
 def worker_grads(cfg: ModelConfig, params, batch, workers: int, *,
-                 q_chunk: int, device):
+                 q_chunk: int, device, window: int = 0, remat: bool = False):
     """Each simulated worker's gradient on its own shard of ``batch``
     (``(W, b, S)`` leaves): a tree like ``params`` of ``(W,) + shape``
-    gradients, and the ``(W,)`` worker losses."""
+    gradients, and the workers' metrics, the dict of their ``(W,)``
+    ``lm_loss`` and ``moe_aux``."""
     grads, losses = SimMesh(workers).run(
         lambda shard: local_grads(cfg, params, shard, q_chunk=q_chunk,
-                                  device=device))(batch)
+                                  device=device, window=window,
+                                  remat=remat))(batch)
     return tree.unflatten(params, grads), losses
 
 
@@ -218,7 +232,8 @@ def _make_step(cfg: ModelConfig, hyper: TrainHyper,
                compressor: Optional[Compressor], lead, grads_fn, dev,
                mesh=None):
     """``(step_fn, init_state)`` around ``grads_fn(params, batch)`` →
-    (gradient tree with ``lead`` worker dims, the workers' ``lm_loss``);
+    (gradient tree with ``lead`` worker dims, the workers' ``lm_loss`` and
+    ``moe_aux``);
     ``step_fn(params, ef_state, batch, ctx, seed)`` is the step body shared
     by both public builders, run under the step's context ``ctx``.  With a
     ``mesh``, the state is this rank's shards (``init_state`` slices the
@@ -236,17 +251,20 @@ def _make_step(cfg: ModelConfig, hyper: TrainHyper,
             compressor.bind_state_partition(parts.comp)
 
     def step_fn(params, ef_state: EFState, batch, ctx: MeshCtx, seed=None):
-        grads, losses = grads_fn(params, batch)
+        grads, worker_metrics = grads_fn(params, batch)
         # metrics aggregate through the backend directly: they are not
         # gradient traffic, so ``stats`` does not record them
-        loss = ctx.pmean_model(ctx.backend.pmean(losses))
+        loss = ctx.pmean_model(ctx.backend.pmean(worker_metrics["lm_loss"]))
+        # without MoE layers the auxiliary loss is 0 on every worker: no call
+        aux_loss = (ctx.pmean_model(ctx.backend.pmean(worker_metrics["moe_aux"]))
+                    if model.has_moe(cfg) else torch.zeros((), device=dev))
         lr = _schedule(hyper, ef_state.step)
         params, ef_state, aux = error_feedback.apply_updates(
             compressor, params, grads, ef_state, mspec_tree, lr=lr,
             momentum=hyper.momentum, weight_decay=hyper.weight_decay, ctx=ctx,
             seed=seed, start_compress_step=hyper.start_compress_step,
             staleness=hyper.staleness)
-        metrics = {"lm_loss": loss, "lr": lr,
+        metrics = {"lm_loss": loss, "moe_aux": aux_loss, "lr": lr,
                    "bits_per_worker": aux["bits_per_worker"]}
         if "residual_ratio" in aux:   # what a host-side RankController reads
             metrics["residual_ratio"] = ctx.pmean_model(
@@ -304,7 +322,9 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper,
     identical on every worker; the error buffers are this worker's own, with
     no worker dim.  Parameters and momentum are updated in place.
     ``metrics["lm_loss"]`` is the loss averaged over the workers (an
-    ``all_reduce`` outside ``stats``: metrics are not gradient traffic).
+    ``all_reduce`` outside ``stats``: metrics are not gradient traffic),
+    ``metrics["moe_aux"]`` the MoE auxiliary loss likewise (another, with
+    MoE layers; without them a 0 and no call).
 
     ``init_state(generator)`` → ``(params, ef_state)``: random parameters
     (and PowerSGD factors) drawn from ``generator``, zero error buffers and
@@ -349,9 +369,10 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper,
     backend.check_device(dev)
 
     def grads_fn(params, batch):
-        grads, loss = local_grads(cfg, params, batch, q_chunk=hyper.q_chunk,
-                                  device=dev, ctx=ctx)
-        return tree.unflatten(params, grads), loss
+        grads, metrics = local_grads(cfg, params, batch, q_chunk=hyper.q_chunk,
+                                     device=dev, ctx=ctx, window=hyper.window,
+                                     remat=hyper.remat)
+        return tree.unflatten(params, grads), metrics
 
     body, init_state = _make_step(cfg, hyper, compressor, ctx.lead, grads_fn,
                                   dev, mesh)
@@ -378,23 +399,50 @@ def train_state_partition(cfg: ModelConfig, mesh,
         staleness=staleness)
 
 
+# model-axis calls of one layer slot's part: (forward all_reduce, backward
+# all_reduce, forward all_gather), with tp_grad_sync on
+_SLOT_CALLS = {
+    # g entering the projections; the K and V gathers, whose backward is
+    # an all_reduce each; f after wo
+    "attn": (1, 3, 2),
+    # g entering x_loc, B and C; the norm's mean square summed (f) and its
+    # g; f after out_proj
+    "mamba": (2, 4, 0),
+    "dense": (1, 1, 0),        # g, f after w_down
+    "moe": (1, 2, 0),          # g on the router logits and on the tokens; f
+    "none": (0, 0, 0),
+}
+
+
 def tp_calls_per_step(cfg: ModelConfig, hyper: TrainHyper) -> dict:
     """The model-axis ``torch.distributed`` calls of one
     :func:`make_train_step` step on a mesh (:data:`repro_torch.core.dist.
-    MODEL_CALLS`), forward and backward, with ``tp_grad_sync`` on.  Per
-    layer: the attention's and the MLP's *g* (an ``all_reduce`` backward
-    each), the K and V gathers (an ``all_gather`` forward and an
-    ``all_reduce`` backward each) and the *f* after ``wo`` and after
-    ``w_down`` (an ``all_reduce`` forward each); once: the embedding's *f*,
-    the head's *g*, the cross-entropy's max and its two sums, and the loss
-    metric's mean over the model axis; the residual ratio's mean under
+    MODEL_CALLS`), forward and backward, with ``tp_grad_sync`` on and the
+    K/V gathers of the attention (not ``tp_local_kv``).  Per layer, by its
+    slot's mixer and feed-forward: an attention's *g* (an ``all_reduce``
+    backward), its K and V gathers (an ``all_gather`` forward and an
+    ``all_reduce`` backward each) and the *f* after ``wo``; a Mamba-2
+    mixer's three *g* (x, B, C), its norm's summed mean square and that
+    sum's *g*, and the *f* after ``out_proj``; a dense MLP's *g* and *f*;
+    an MoE layer's two *g* (router logits, tokens) and its *f*.  Once: the
+    embedding's *f*, the head's *g*, the cross-entropy's max and its two
+    sums, the loss metric's mean over the model axis (and the MoE
+    auxiliary loss's, with MoE layers); the residual ratio's mean under
     ``track_residual`` and the four drift probes' max under
-    ``track_drift``."""
+    ``track_drift``.  Under ``remat`` every forward call of the blocks runs
+    again in the backward (the recomputation runs each period whole)."""
     if not hyper.tp_grad_sync:
         raise ValueError("the count is for tp_grad_sync=True")
-    all_reduce = (6 * cfg.num_layers + 5 + 1 + int(hyper.track_residual)
+    fwd = bwd = gather = 0
+    for slot in cfg.slots:
+        for part in (slot.mixer, slot.ffn):
+            f, b, g = _SLOT_CALLS[part]
+            fwd, bwd, gather = fwd + f, bwd + b, gather + g
+    reps = 2 if hyper.remat else 1
+    all_reduce = ((reps * fwd + bwd) * cfg.num_periods + 5 + 1
+                  + int(model.has_moe(cfg)) + int(hyper.track_residual)
                   + 4 * int(hyper.track_drift))
-    return {"all_reduce": all_reduce, "all_gather": 2 * cfg.num_layers}
+    return {"all_reduce": all_reduce, "all_gather": reps * gather * cfg.num_periods}
 
 
 def make_sim_train_step(cfg: ModelConfig, sim, hyper: TrainHyper,
@@ -422,7 +470,8 @@ def make_sim_train_step(cfg: ModelConfig, sim, hyper: TrainHyper,
     state are worker-identical and held once; the error buffers carry the
     worker dim.  Parameters and momentum are updated in place.
     ``metrics["lm_loss"]`` is the workers' loss averaged as the aggregates
-    are (weighted under ``weights``).
+    are (weighted under ``weights``), and ``metrics["moe_aux"]`` their MoE
+    auxiliary loss likewise (0 without MoE layers).
 
     ``init_state(generator)`` → ``(params, ef_state)``: random parameters
     (and PowerSGD factors) drawn from ``generator``, zero error buffers and
@@ -434,7 +483,8 @@ def make_sim_train_step(cfg: ModelConfig, sim, hyper: TrainHyper,
 
     def grads_fn(params, batch):
         return worker_grads(cfg, params, batch, w, q_chunk=hyper.q_chunk,
-                            device=dev)
+                            device=dev, window=hyper.window,
+                            remat=hyper.remat)
 
     body, init_state = _make_step(cfg, hyper, compressor, (w,), grads_fn, dev)
 

@@ -2,7 +2,10 @@
 parallelism (port of the train ``forward`` of ``repro.models.attention``).
 
 Written as the JAX package writes it: queries in chunks of ``q_chunk``,
-einsum scores against the full key sequence, a causal mask and a softmax.
+einsum scores against the full key sequence (or, under a sliding
+``window``, against a ``window + q_chunk`` wide slice of it), a causal
+mask and a softmax.  ``cfg.qk_norm`` RMS-normalises each query and key
+head (``q_norm``/``k_norm``) before RoPE.
 
 Sharding over the ``model`` axis:
 
@@ -14,7 +17,8 @@ Sharding over the ``model`` axis:
   kept local with no gather;
 * ``wo`` is row-parallel: its output is summed over the model axis (*f*).
 
-The decode and prefill paths wait for ROADMAP queue A, item 15.
+The decode and prefill paths wait for ROADMAP queue A, item 15 (its
+decode half).
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dist import SINGLE, MeshCtx
-from repro_torch.core.matrixize import MatrixSpec
+from repro_torch.core.matrixize import NONE as SPEC_NONE, MatrixSpec
 from repro_torch.models import common
 from repro_torch.sharding import P
 
@@ -49,21 +53,33 @@ def init(cfg: ModelConfig, generator, device=None, dtype=torch.float32,
     """The global weights, query heads padded to ``model_shards``."""
     hd, d = cfg.resolved_head_dim, cfg.d_model
     hq, hkv = padded_heads(cfg, model_shards) * hd, cfg.num_kv_heads * hd
-    return {
+    params = {
         "wq": common.dense_init((d, hq), d, generator, device, dtype),
         "wk": common.dense_init((d, hkv), d, generator, device, dtype),
         "wv": common.dense_init((d, hkv), d, generator, device, dtype),
         "wo": common.dense_init((hq, d), hq, generator, device, dtype),
     }
+    if cfg.qk_norm:
+        params["q_norm"] = common.rmsnorm_init(hd, device, dtype)
+        params["k_norm"] = common.rmsnorm_init(hd, device, dtype)
+    return params
 
 
 def pspecs(cfg: ModelConfig):
-    return {"wq": P(None, "model"), "wk": P(None, "model"),
-            "wv": P(None, "model"), "wo": P("model", None)}
+    s = {"wq": P(None, "model"), "wk": P(None, "model"),
+         "wv": P(None, "model"), "wo": P("model", None)}
+    if cfg.qk_norm:
+        s["q_norm"] = P(None)
+        s["k_norm"] = P(None)
+    return s
 
 
 def mspecs(cfg: ModelConfig):
-    return {k: MatrixSpec("matrix", 0) for k in ("wq", "wk", "wv", "wo")}
+    s = {k: MatrixSpec("matrix", 0) for k in ("wq", "wk", "wv", "wo")}
+    if cfg.qk_norm:
+        s["q_norm"] = SPEC_NONE
+        s["k_norm"] = SPEC_NONE
+    return s
 
 
 def _heads(kv: torch.Tensor, kv_idx) -> torch.Tensor:
@@ -91,8 +107,11 @@ def _heads(kv: torch.Tensor, kv_idx) -> torch.Tensor:
 
 
 def forward(params, x: torch.Tensor, cfg: ModelConfig, ctx: MeshCtx = SINGLE,
-            *, q_chunk: int = 512):
-    """x: (B, S, d), replicated over the model axis → (B, S, d), likewise."""
+            *, q_chunk: int = 512, window: int = 0):
+    """x: (B, S, d), replicated over the model axis → (B, S, d), likewise.
+
+    ``window`` > 0 (and < S) attends each query to the ``window`` keys
+    ending at its own position (sliding-window attention)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     hl = params["wq"].shape[1] // hd            # local (padded) head count
@@ -115,6 +134,10 @@ def forward(params, x: torch.Tensor, cfg: ModelConfig, ctx: MeshCtx = SINGLE,
         k = ctx.all_gather_model(x @ params["wk"]).reshape(b, s, cfg.num_kv_heads, hd)
         v = ctx.all_gather_model(x @ params["wv"]).reshape(b, s, cfg.num_kv_heads, hd)
 
+    if cfg.qk_norm:
+        q = common.rmsnorm(q, params["q_norm"])
+        k = common.rmsnorm(k, params["k_norm"])
+
     positions = torch.arange(s, device=x.device)
     q = common.apply_rope(q, positions[None, :], cfg.rope_theta)
     k = common.apply_rope(k, positions[None, :], cfg.rope_theta)
@@ -128,21 +151,59 @@ def forward(params, x: torch.Tensor, cfg: ModelConfig, ctx: MeshCtx = SINGLE,
     k_h, v_h = _heads(k, kv_idx), _heads(v, kv_idx)
 
     qc = min(q_chunk, s)
-    kpos = torch.arange(s, device=x.device)
-    outs = []
-    for start in range(0, s, qc):
-        qck = q[:, start:start + qc]
-        scores = torch.einsum("bqhd,bkhd->bhqk", qck, k_h) * scale
-        qpos = start + torch.arange(qck.shape[1], device=x.device)
-        mask = qpos[:, None] >= kpos[None, :]
-        scores = torch.where(mask[None, None], scores,
-                             torch.full_like(scores, NEG_INF))
-        probs = torch.softmax(scores, dim=-1)
-        outs.append(torch.einsum("bhqk,bkhd->bqhd", probs, v_h))
-    out = torch.cat(outs, dim=1)
+    if window and window < s:
+        out = _windowed_chunks(q, k_h, v_h, qc, window, scale)
+    else:
+        out = _full_chunks(q, k_h, v_h, qc, scale)
     if head0 + hl > cfg.num_heads:
         # padded heads contribute nothing (and get no gradient)
         real = torch.arange(head0, head0 + hl, device=x.device) < cfg.num_heads
         out = torch.where(real[None, None, :, None], out, torch.zeros_like(out))
     out = out.reshape(b, s, hl * hd)
     return ctx.psum_model(out @ params["wo"])
+
+
+def _attend(qck, ks, vs, mask, scale):
+    scores = torch.einsum("bqhd,bkhd->bhqk", qck, ks) * scale
+    scores = torch.where(mask[None, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, vs)
+
+
+def _full_chunks(q, k, v, qc, scale):
+    """Each chunk of ``qc`` queries against every key, causally masked."""
+    s = k.shape[1]
+    kpos = torch.arange(s, device=q.device)
+    outs = []
+    for start in range(0, q.shape[1], qc):
+        qck = q[:, start:start + qc]
+        qpos = start + torch.arange(qck.shape[1], device=q.device)
+        outs.append(_attend(qck, k, v, qpos[:, None] >= kpos[None, :], scale))
+    return torch.cat(outs, dim=1)
+
+
+def _windowed_chunks(q, k, v, qc, window, scale):
+    """Sliding window: each chunk of ``qc`` queries attends a static
+    ``wpad + qc`` wide slice of the keys, left-padded by ``wpad`` (the
+    window rounded up to whole chunks) so that every slice has that
+    width, as the JAX package's ``_windowed_chunks`` does."""
+    b, s, h, hd = k.shape
+    wpad = ((window + qc - 1) // qc) * qc
+    kv_span = wpad + qc
+    # the slices reach past the last key where S is no multiple of qc
+    tail = -(-s // qc) * qc - s
+    pad = lambda t: torch.cat([t.new_zeros((b, wpad, h, hd)), t,
+                               t.new_zeros((b, tail, h, hd))], dim=1)
+    kp, vp = pad(k), pad(v)
+    outs = []
+    for start in range(0, q.shape[1], qc):
+        qck = q[:, start:start + qc]
+        qpos = start + torch.arange(qck.shape[1], device=q.device)
+        kpos = start + torch.arange(kv_span, device=q.device) - wpad
+        mask = ((qpos[:, None] >= kpos[None, :])
+                & (qpos[:, None] - kpos[None, :] < window)
+                & (kpos[None, :] >= 0))
+        outs.append(_attend(qck, kp[:, start:start + kv_span],
+                            vp[:, start:start + kv_span], mask, scale))
+    return torch.cat(outs, dim=1)

@@ -1,9 +1,11 @@
 """Learning-rate schedules (port of ``repro.optim.schedules``: the linear
-warmup the training step uses, and the paper's CIFAR-10 recipe with its
-step decay).  Plain float functions of the step."""
+warmup the training step uses, the paper's CIFAR-10 recipe with its
+step decay, and the cosine decay of the Appendix-D transformer recipe).
+Plain float functions of the step."""
 
 from __future__ import annotations
 
+import math
 from typing import Iterable
 
 
@@ -22,6 +24,14 @@ def step_decay(step: int, lr: float, milestones: Iterable[int],
         if step >= m:
             lr = lr * factor
     return lr
+
+
+def cosine(step: int, base_lr: float, total_steps: int,
+           min_frac: float = 0.0) -> float:
+    """Cosine decay from ``base_lr`` to ``min_frac·base_lr`` over
+    ``total_steps``, flat after."""
+    t = min(max(step / max(total_steps, 1), 0.0), 1.0)
+    return base_lr * (min_frac + (1 - min_frac) * 0.5 * (1 + math.cos(math.pi * t)))
 
 
 def paper_cifar_schedule(step: int, base_lr: float, num_workers: int,

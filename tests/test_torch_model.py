@@ -58,7 +58,8 @@ def test_loss_and_grads_match_reference(setup):
         params, {k: torch.tensor(v) for k, v in batch.items()}, cfg, q_chunk=16)
     grads = torch.autograd.grad(loss, tree.leaves(params))
     np.testing.assert_allclose(loss.item(), float(jl), rtol=1e-5)
-    assert metrics["lm_loss"] is loss
+    # no MoE layer: the total adds a zero auxiliary loss and is the lm_loss
+    assert torch.equal(metrics["lm_loss"], loss)
     jg_np = jax.tree_util.tree_leaves(jax.tree_util.tree_map(np.asarray, jg))
     paths = [path for path, _ in tree.items(params)]
     for path, got, want in zip(paths, grads, jg_np):
@@ -71,17 +72,22 @@ def test_cuda_grads_are_deterministic(setup):
     """Two backward passes on the card give the same bits: the kv heads are
     shared out by an expand, whose backward is a sum (index_select's
     backward adds with atomics on the card, in an order that changes from
-    run to run)."""
+    run to run); so are an MoE layer's tokens, and its k slots are summed
+    (reduced Qwen3-30B-A3B)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     _, cfg, _, params_np, batch = setup
-    params = bridge.to_torch(params_np, device="cuda")
+    moe_cfg = base.get_config("qwen3_moe_30b_a3b", reduced=True)
     tb = {k: torch.tensor(v, device="cuda") for k, v in batch.items()}
-    first, second = (train.local_grads(cfg, params, tb, q_chunk=16, device="cuda")
-                     for _ in range(2))
-    assert torch.equal(first[1], second[1])
-    for path, a, b in zip(tree.items(params), first[0], second[0]):
-        assert torch.equal(a, b), path[0]
+    for c, params in (
+            (cfg, bridge.to_torch(params_np, device="cuda")),
+            (moe_cfg, model.init(moe_cfg, torch.Generator("cuda").manual_seed(0),
+                                 device="cuda"))):
+        first, second = (train.local_grads(c, params, tb, q_chunk=16,
+                                           device="cuda") for _ in range(2))
+        assert torch.equal(first[1]["lm_loss"], second[1]["lm_loss"])
+        for path, a, b in zip(tree.items(params), first[0], second[0]):
+            assert torch.equal(a, b), (c.name, path[0])
 
 
 def test_q_chunking_does_not_change_the_loss(setup):
@@ -125,8 +131,16 @@ def test_config_and_specs_match_reference(reduced):
 
 
 def test_unported_architectures_raise():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        base.get_config("mamba2-1.3b")
+    """Every architecture id and alias resolves, full and reduced (the
+    training half of item 15 is ported); the decode and prefill entry
+    points still raise naming item 15."""
+    for arch in base.ARCH_IDS + list(base.ARCH_ALIASES):
+        for reduced in (False, True):
+            cfg = base.get_config(arch, reduced=reduced)
+            assert cfg.num_periods * cfg.period == cfg.num_layers
+    for stub in (model.init_cache, model.decode_step, model.prefill_step):
+        with pytest.raises(NotImplementedError, match="item 15"):
+            stub(None, None)
 
 
 def test_init_shapes_and_count_match_reference():

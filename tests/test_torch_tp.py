@@ -9,7 +9,9 @@ count at its first use), beside the port's 4 ranks; one module fixture
 starts them all before the first test.  The reference's coordinates are read off ``mesh.devices``.
 
 * (1) Partition records: ``train_state_partition`` against the reference's
-  on reduced and full-width Llama-3-8B, for PowerSGD, Top-K and identity,
+  on reduced and full-width Llama-3-8B and on reduced Jamba and
+  Qwen3-30B-A3B (expert weights, Mamba-2's head-split vectors and its
+  row-parallel ``out_proj``), for PowerSGD, Top-K and identity,
   synchronous and one-step; ``partition_mismatches`` on the sound trees and
   on one broken tree of each kind.  Spec logic, in this process.
 * (2) Per-rank gradients of ``loss_fn`` against the reference's
@@ -25,6 +27,14 @@ starts them all before the first test.  The reference's coordinates are read off
   tolerances of ``tests/test_torch_dist.py``), the data-axis records of a
   step equal to the reference's trace, and the model-axis calls of a step
   equal to the count the model code predicts.
+* (2a) The hybrid, reduced Jamba (an attention, a Mamba-2, an MoE and a
+  dense slot): gradients at every coordinate within 5e-5 of each leaf's
+  largest magnitude (measured 2.0e-5; the per-head ``A_log``, ``D`` and
+  ``dt_bias`` within 1e-4, measured 3.9e-5); port only, under
+  ``remat=True`` the same bits, and the model-axis calls of the
+  gradient equal to ``train.tp_calls_per_step``'s count without the
+  metrics' means, with and without recomputation (which runs every
+  forward call of the blocks again).
 * (2b) ``tp_local_kv``: the kv heads split over the model axis,
   gradients as in (2), and no model-axis gather in the forward and
   backward pass (4 without it).
@@ -79,7 +89,7 @@ import torch.multiprocessing as mp
 
 from repro_torch import bridge, tree
 from repro_torch.checkpoint import train_state as ts
-from repro_torch.configs import llama3_8b
+from repro_torch.configs import jamba_v01_52b, llama3_8b, qwen3_moe_30b_a3b
 from repro_torch.core import compressors, dist, engine, powersgd
 from repro_torch.data.synthetic import MarkovLM
 from repro_torch.launch import mesh as mesh_lib
@@ -106,13 +116,21 @@ D, M = 2, 2
 W = D * M
 BATCH, SEQ, STEPS = 8, 32, 3
 PATHS = ("bucketed", "per_leaf", "top_k", "sync", "stale")
-GRAD_CASES = ("sync_on", "sync_off", "padded", "local_kv")
+GRAD_CASES = ("sync_on", "sync_off", "padded", "local_kv", "hybrid")
 # the reference's work in two processes at once, about even: (paths, cases)
 REFERENCE_PARTS = {"a": (PATHS[:3], ()), "b": (PATHS[3:], GRAD_CASES)}
 RENDEZVOUS_S = 60
 RESULTS_S = 170
 LOSS_RTOL, PARAM_ATOL, STATE_ATOL = 1e-5, 2e-6, 1e-5
 GRAD_ATOL = 1e-5
+# (2a) the hybrid's gradients reach ~150 in magnitude (Mamba-2's A_log), so
+# each leaf is held relative to its largest magnitude: within
+# HYBRID_GRAD_RTOL (measured up to 2.0e-5, Mamba-2's wB and the embedding:
+# the scan's sums and the model axis's gloo sums run in other orders than
+# XLA's), Mamba-2's per-head vectors (A_log, D, dt_bias) within
+# SCAN_VECTOR_GRAD_RTOL (measured up to 3.9e-5: each entry sums over every
+# token and state entry of the scan)
+HYBRID_GRAD_RTOL, SCAN_VECTOR_GRAD_RTOL = 5e-5, 1e-4
 # (7) the paths whose state after STEPS steps each package writes as a (2, 2)
 # envelope, and the rank the bucketed path's factors then grow to
 CKPT_PATHS = ("bucketed", "stale")
@@ -150,6 +168,8 @@ def _case_cfg(cfg, case):
 
 
 def _cfg(case="sync_on"):
+    if case == "hybrid":
+        return jamba_v01_52b.reduced_config()
     return _case_cfg(llama3_8b.reduced_config(), case)
 
 
@@ -212,6 +232,7 @@ def _reference_main(directory, part):
     from jax.sharding import PartitionSpec as JP
 
     from repro import checkpoint as jckpt
+    from repro.configs import jamba_v01_52b as jjamba
     from repro.configs import llama3_8b as jllama
     from repro.core import compressors as jcomp
     from repro.core import dist as jdist
@@ -300,7 +321,8 @@ def _reference_main(directory, part):
     jtrain.MeshCtx = jdist.MeshCtx
 
     for case in cases:
-        gcfg = _case_cfg(cfg, case)
+        gcfg = (jjamba.reduced_config() if case == "hybrid"
+                else _case_cfg(cfg, case))
         ctx = jdist.MeshCtx(data_axes=("data",), model_axis="model",
                             tp_grad_sync=case != "sync_off")
         params = inputs["grad_start"][case]
@@ -374,15 +396,19 @@ def _reference_inputs():
     cfg = _cfg()
     params, comp = start(cfg)
     padded = start(_cfg("padded"))[0]
+    hybrid = bridge.to_numpy(model.init(
+        _cfg("hybrid"), torch.Generator().manual_seed(1), "cpu", model_shards=M))
     return {"start": {"params": params, "comp": comp},
             "grow_cols": _grow_columns(comp),
             "batches": _batches(cfg.vocab_size, STEPS),
             "grad_start": {"sync_on": params, "sync_off": params,
-                           "padded": padded, "local_kv": params},
+                           "padded": padded, "local_kv": params,
+                           "hybrid": hybrid},
             "grad_batch": {"sync_on": _batches(cfg.vocab_size, 1, 3)[0],
                            "sync_off": _batches(cfg.vocab_size, 1, 3)[0],
                            "padded": _batches(1023, 1, 4)[0],
-                           "local_kv": _batches(cfg.vocab_size, 1, 3)[0]}}
+                           "local_kv": _batches(cfg.vocab_size, 1, 3)[0],
+                           "hybrid": _batches(_cfg("hybrid").vocab_size, 1, 5)[0]}}
 
 
 def _grow_columns(comp):
@@ -500,9 +526,10 @@ def _rank_steps(mesh, path, inputs):
     return out
 
 
-def _grads(cfg, params, batch, ctx):
+def _grads(cfg, params, batch, ctx, remat=False):
     b = {k: torch.from_numpy(v.copy()) for k, v in batch.items()}
-    g, m = train.grad_with_aux(model.loss_fn)(params, b, cfg, ctx, q_chunk=16)
+    g, m = train.grad_with_aux(model.loss_fn)(params, b, cfg, ctx, q_chunk=16,
+                                              remat=remat)
     return bridge.to_numpy(g), m["lm_loss"].item()
 
 
@@ -514,10 +541,14 @@ def _rank_grads(mesh, inputs):
                            tp_grad_sync=case != "sync_off")
         params = bridge.to_torch_local(inputs["grad_start"][case],
                                        model.pspecs(cfg), mesh)
+        batch = _row(inputs["grad_batch"][case], mesh.coord[0])
         dist.reset_model_calls()
-        out[case] = _grads(cfg, params, _row(inputs["grad_batch"][case],
-                                             mesh.coord[0]), ctx)
+        out[case] = _grads(cfg, params, batch, ctx)
         out[case + " calls"] = dict(dist.MODEL_CALLS)
+        if case == "hybrid":
+            dist.reset_model_calls()
+            out["hybrid remat"] = _grads(cfg, params, batch, ctx, remat=True)
+            out["hybrid remat calls"] = dict(dist.MODEL_CALLS)
     return out
 
 
@@ -686,7 +717,8 @@ class _AxisNames:
     shape = {"data": D, "model": M}
 
 
-PARTITION_CASES = [(size, comp, stale) for size in ("reduced", "full")
+PARTITION_CASES = [(size, comp, stale)
+                   for size in ("reduced", "full", "jamba", "qwen3_moe")
                    for comp in ("powersgd", "top_k", "identity")
                    for stale in ("none", "one_step")]
 
@@ -697,8 +729,15 @@ def _partition_pair(size, comp_name, staleness):
     from repro.core import compressors as jcomp
     from repro.launch import train as jtrain
 
-    jcfg = jllama.reduced_config() if size == "reduced" else jllama.config()
-    cfg = llama3_8b.reduced_config() if size == "reduced" else llama3_8b.config()
+    from repro.configs import jamba_v01_52b as jjamba
+    from repro.configs import qwen3_moe_30b_a3b as jqwen
+
+    jcfg, cfg = {
+        "reduced": (jllama.reduced_config(), llama3_8b.reduced_config()),
+        "full": (jllama.config(), llama3_8b.config()),
+        "jamba": (jjamba.reduced_config(), jamba_v01_52b.reduced_config()),
+        "qwen3_moe": (jqwen.reduced_config(),
+                      qwen3_moe_30b_a3b.reduced_config())}[size]
     jparts = jtrain.train_state_partition(
         jcfg, _AxisNames(), jcomp.make_compressor(comp_name, rank=2), staleness)
     parts = train.train_state_partition(
@@ -737,11 +776,28 @@ def test_partition_records_match_reference(size, comp, staleness):
     want = {p: (_norm_spec(s), r) for p, (s, r) in _jflat(jparts).items()}
     got = {p: (_norm_spec(s), r) for p, (s, r) in _flat(parts).items()}
     assert got == want
-    if comp == "powersgd":
-        rel = {p: r for p, (_, r) in got.items() if p.startswith(".comp")}
-        assert rel[".comp['blocks']['slot0']['mixer']['wo']"] == engine.MODEL_LOCAL
-        assert rel[".comp['blocks']['slot0']['mixer']['wq']"] == engine.MODEL_SHARDED
-        assert rel[".comp['embed']"] == engine.MODEL_LOCAL
+    if comp != "powersgd":
+        return
+    rel = {p: r for p, (_, r) in got.items() if p.startswith(".comp")}
+    spec = {p: s for p, (s, _) in got.items()}
+    attn = "slot1" if size == "jamba" else "slot0"
+    assert rel[f".comp['blocks']['{attn}']['mixer']['wo']"] == engine.MODEL_LOCAL
+    assert rel[f".comp['blocks']['{attn}']['mixer']['wq']"] == engine.MODEL_SHARDED
+    assert rel[".comp['embed']"] == engine.MODEL_LOCAL
+    if size in ("jamba", "qwen3_moe"):
+        # expert weights: the expert dim carries the axis, two batch dims
+        for w in ("w_gate", "w_up", "w_down"):
+            leaf = f"['blocks']['{attn}']['ffn']['{w}']"
+            assert spec[".momentum" + leaf] == (None, "model", None, None)
+            assert spec[".comp" + leaf] == (None, "model", None, None)
+            assert rel[".comp" + leaf] == engine.MODEL_SHARDED
+    if size == "jamba":
+        mamba = "['blocks']['slot0']['mixer']"
+        assert rel[f".comp{mamba}['out_proj']"] == engine.MODEL_LOCAL
+        assert rel[f".comp{mamba}['wx']"] == engine.MODEL_SHARDED
+        for v in ("A_log", "D", "dt_bias", "norm_scale"):
+            assert spec[f".momentum{mamba}['{v}']"] == (None, "model")
+            assert f".comp{mamba}['{v}']" not in rel
 
 
 def _states(jcfg, cfg, staleness):
@@ -850,13 +906,45 @@ def test_grid_layout(run):
                                        "chips": W, "axis_names": ("data", "model")}
 
 
+def _leaf_gaps(a, b):
+    """Each leaf's largest gap over its largest magnitude, by path."""
+    return {path: float(np.abs(np.asarray(x, np.float64) - y).max()
+                        / max(np.abs(y).max(), 1e-30))
+            for (path, x), y in zip(tree.items(a), tree.leaves(b))}
+
+
 @pytest.mark.parametrize("case", GRAD_CASES)
 def test_gradients_match_reference(run, case):
     ref = run["reference"]["grads"][case]
     for c, out in _by_coord(run).items():
         grads, loss = out["grads"][case]
         np.testing.assert_allclose(loss, ref["loss"][c], rtol=LOSS_RTOL)
-        assert _gap(grads, ref["grads"][c]) <= GRAD_ATOL, (c, case)
+        if case != "hybrid":
+            assert _gap(grads, ref["grads"][c]) <= GRAD_ATOL, (c, case)
+            continue
+        for path, gap in _leaf_gaps(grads, ref["grads"][c]).items():
+            limit = (SCAN_VECTOR_GRAD_RTOL if path[-1] in ("A_log", "D", "dt_bias")
+                     else HYBRID_GRAD_RTOL)
+            assert gap <= limit, (c, path, gap)
+
+
+def test_hybrid_remat_is_bit_equal_and_counted(run):
+    """Reduced Jamba's gradient under ``remat=True`` is the plain one bit
+    for bit at every coordinate; its model-axis calls are
+    ``tp_calls_per_step``'s without the step's two metric means (loss and
+    MoE auxiliary loss), and recomputation adds every forward call of the
+    blocks once more."""
+    cfg = _cfg("hybrid")
+    for remat, key in ((False, "hybrid"), (True, "hybrid remat")):
+        want = train.tp_calls_per_step(cfg, train.TrainHyper(remat=remat))
+        want["all_reduce"] -= 2
+        for out in run["ranks"].values():
+            assert out["grads"][key + " calls"] == want, key
+    for out in run["ranks"].values():
+        plain, again = out["grads"]["hybrid"], out["grads"]["hybrid remat"]
+        assert plain[1] == again[1]
+        for a, b in zip(tree.leaves(plain[0]), tree.leaves(again[0])):
+            assert np.array_equal(a, b)
 
 
 def test_local_kv_heads_need_no_gather(run):

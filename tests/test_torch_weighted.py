@@ -445,7 +445,7 @@ def test_unweighted_step_is_unchanged(reference_run):
         model.mspecs(cfg), lr=train._schedule(hyper, 0),
         momentum=hyper.momentum, weight_decay=hyper.weight_decay,
         ctx=SimMesh(W).ctx())
-    assert torch.equal(m["lm_loss"], losses.mean())
+    assert torch.equal(m["lm_loss"], losses["lm_loss"].mean())
     assert _equal(params, p_hand) and _equal(ef.error, ef_hand.error)
     assert _equal(ef.momentum, ef_hand.momentum) and _equal(ef.comp, ef_hand.comp)
     p_ones, _, m_ones = step(p_ones, ef_ones, batch, weights=[1.0] * W)
